@@ -3,7 +3,7 @@
 DRQN over a sweep of observation shapes (5,5), (5,5,5), (20,20), (200,).
 
 Run: ``python benchmark/full_solve.py [--small]``. Prints one JSON line per
-(config, obsdim) with wall time and final greedy return.
+(config, obsdim) with wall time, final greedy return and the device it ran on.
 """
 import json
 import os
@@ -14,10 +14,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
 
 from deepqlearning_tpu import (
     Chain,
@@ -30,6 +26,7 @@ from deepqlearning_tpu import (
     TestMDP,
 )
 from deepqlearning_tpu.solver.evaluation import basic_evaluation
+from deepqlearning_tpu.utils.compile_cache import enable_compile_cache
 
 
 def bench_prioritized_ddqn(obsdim, max_steps):
@@ -72,6 +69,7 @@ def bench_drqn(obsdim, max_steps):
 
 
 def main():
+    enable_compile_cache()
     small = "--small" in sys.argv
     max_steps = 2000 if small else 10_000
     obsdims = [(5, 5)] if small else [(5, 5), (5, 5, 5), (20, 20), (200,)]
@@ -81,8 +79,12 @@ def main():
             t0 = time.perf_counter()
             r = fn(obsdim, max_steps)
             dt = time.perf_counter() - t0
+            dev = jax.devices()[0]
             print(json.dumps({
                 "bench": name, "obsdim": list(obsdim),
+                "device": {"platform": dev.platform,
+                           "kind": dev.device_kind,
+                           "count": len(jax.devices())},
                 "max_steps": max_steps,
                 "wall_s": round(dt, 2), "final_return": round(float(r), 3),
             }))

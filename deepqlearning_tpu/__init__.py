@@ -1,13 +1,13 @@
-"""deepqlearning_tpu — TPU-native deep Q-learning framework.
+"""deepqlearning_tpu — a vectorized deep Q-learning framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 JuliaPOMDP/DeepQLearning.jl (reference mounted at /root/reference): vanilla /
 double / dueling / prioritized DQN and recurrent DRQN, pure-functional
 vectorized environments, HBM sum-tree replay, fused jitted train steps, and
-data-parallel scaling over a TPU mesh.
+data-parallel scaling over a device mesh.
 
 The public surface mirrors the reference export list
-(``src/DeepQLearning.jl:19-33``) plus the TPU-native extensions.
+(``src/DeepQLearning.jl:19-33``) plus the vectorized extensions.
 """
 
 from .config import DQNConfig

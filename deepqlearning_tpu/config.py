@@ -1,7 +1,7 @@
 """Solver configuration.
 
 Field-for-field parity with the reference solver config struct
-(``DeepQLearningSolver`` at reference ``src/solver.jl:1-28``), plus TPU-native
+(``DeepQLearningSolver`` at reference ``src/solver.jl:1-28``), plus
 extensions (vectorized env count, dtype, mesh axis names).
 
 Notes on defaults vs the reference:
@@ -57,7 +57,7 @@ class DQNConfig:
     log_freq: int = 100
     verbose: bool = True
 
-    # --- TPU-native extensions ---
+    # --- extensions over the reference ---
     num_envs: int = 1
     dtype: Any = jnp.float32
     # When several train updates run back-to-back per iteration
@@ -66,31 +66,12 @@ class DQNConfig:
     # deviation documented in docs/DEVIATIONS.md). No effect when
     # updates_per_iter == 1.
     grouped_updates: bool = True
-    # Run the whole grouped train phase as ONE Pallas kernel when the network
-    # is a supported feed-forward Dense stack (ops/pallas/fused_update.py).
-    # None = auto (on for TPU backends when supported), True = force (uses
-    # the interpreter off-TPU), False = always use the XLA grouped path.
-    # Even when True, the kernel cannot run under a multi-chip axis_name or
-    # for unsupported networks (recurrent / non-Dense / num_actions > 128) —
-    # those fall back to the XLA grouped path with a warning.
-    fused_updates: Optional[bool] = None
-    # Fused collect-phase kernel (ops/pallas/fused_collect.py): whole
-    # act->step->bookkeeping chain in one Pallas launch. Same None/True/False
-    # semantics as fused_updates. Requires an env implementing the cols
-    # protocol (e.g. SimpleGridWorld), a kernel-supported feed-forward
-    # network, f32 replay storage, the default ε-greedy strategy, and
-    # num_envs a multiple of 128 — anything else falls back to the XLA
-    # collect step. NOTE: the kernel uses the on-chip TPU PRNG, so the
-    # exploration/env random STREAM differs from the XLA path (identical
-    # distributions).
-    fused_collect: Optional[bool] = None
     # Name of the data-parallel mesh axis when running under shard_map/pjit.
     data_axis: str = "data"
 
     def __post_init__(self):
         # canonicalize dtype so string spellings ('float32') and np/jnp types
-        # compare equal everywhere (the fused-path gating compares dtypes;
-        # a string spelling must not silently disable the kernels)
+        # compare equal everywhere
         object.__setattr__(self, "dtype", jnp.dtype(self.dtype))
         # num_envs and train_freq must nest one way or the other, else the
         # floor-divisions in steps_per_iter/updates_per_iter silently shift

@@ -3,7 +3,7 @@
 The reference accepts POMDPs.jl problems and wraps them into envs
 (``MDPCommonRLEnv``/``POMDPCommonRLEnv``, ``src/solver.jl:30-38``), converting
 states/observations to float arrays via ``convert_s``/``convert_o``
-(``src/policy.jl:66-76``). The TPU-native analog: a *problem* is a small
+(``src/policy.jl:66-76``). The functional analog: a *problem* is a small
 object of pure functions, and ``MDPEnv``/``POMDPEnv`` adapt it onto the
 functional ``Env`` protocol so it runs vectorized under jit like any other
 env.

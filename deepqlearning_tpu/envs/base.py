@@ -2,7 +2,7 @@
 
 The reference consumes environments through CommonRLInterface's mutable
 ``reset!/observe/act!/terminated/actions`` (``src/DeepQLearning.jl:15``) and
-adapts POMDPs.jl problems onto it (``src/solver.jl:31,36``). TPU-native
+adapts POMDPs.jl problems onto it (``src/solver.jl:31,36``). Here
 environments are instead *pure functions over pytrees* so thousands of
 instances step in lockstep under ``vmap`` inside one jitted program:
 

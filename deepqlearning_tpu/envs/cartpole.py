@@ -71,48 +71,3 @@ class CartPole(Env):
             | (jnp.abs(new.theta) > self.theta_threshold)
         )
         return new, self.observe(new), jnp.asarray(1.0, jnp.float32), done
-
-    # ---------------------------------------------------------------- lanes
-    # Kernel-traceable cols protocol (ops/pallas/fused_collect.py; see
-    # envs/gridworld.py for the protocol description). CartPole's physics
-    # are deterministic — no step uniforms; reset draws the 4 state values
-    # uniformly in [-0.05, 0.05].
-    lane_state_width = 4          # [x, x_dot, theta, theta_dot]
-    n_uniform_step = 0
-    n_uniform_reset = 4
-
-    def state_to_cols(self, state: CartPoleState) -> jnp.ndarray:
-        return jnp.stack([state.x, state.x_dot, state.theta, state.theta_dot],
-                         axis=0)
-
-    def cols_to_state(self, cols: jnp.ndarray) -> CartPoleState:
-        return CartPoleState(x=cols[0], x_dot=cols[1], theta=cols[2],
-                             theta_dot=cols[3])
-
-    def step_cols(self, cols, action, u):
-        x, x_dot, theta, theta_dot = (cols[0:1], cols[1:2], cols[2:3],
-                                      cols[3:4])
-        force = jnp.where(action == 1.0, self.force_mag, -self.force_mag)
-        costh = jnp.cos(theta)
-        sinth = jnp.sin(theta)
-        total_mass = self.masscart + self.masspole
-        polemass_length = self.masspole * self.length
-        temp = (force + polemass_length * theta_dot**2 * sinth) / total_mass
-        theta_acc = (self.gravity * sinth - costh * temp) / (
-            self.length * (4.0 / 3.0 - self.masspole * costh**2 / total_mass)
-        )
-        x_acc = temp - polemass_length * theta_acc * costh / total_mass
-        nx = x + self.tau * x_dot
-        nx_dot = x_dot + self.tau * x_acc
-        nth = theta + self.tau * theta_dot
-        nth_dot = theta_dot + self.tau * theta_acc
-        done = ((jnp.abs(nx) > self.x_threshold)
-                | (jnp.abs(nth) > self.theta_threshold)).astype(jnp.float32)
-        obs = jnp.concatenate([nx, nx_dot, nth, nth_dot], axis=0)
-        new_cols = obs
-        reward = jnp.ones_like(done)
-        return new_cols, obs, reward, done
-
-    def reset_cols(self, u):
-        cols = u[0:4] * 0.1 - 0.05
-        return cols, cols

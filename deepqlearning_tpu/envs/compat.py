@@ -2,7 +2,7 @@
 
 The reference trains on *any* object speaking CommonRLInterface —
 including user classes that are not vectorizable (``test/runtests.jl:199-234``
-"Common RL Env", ``:165-197`` "Static Array Env"). The TPU-native analog:
+"Common RL Env", ``:165-197`` "Static Array Env"). The analog here:
 ``HostEnv`` is the same mutable ``reset/observe/act/terminated/actions``
 protocol stepped on the host, while action selection and the train step stay
 jitted on device. Throughput is host-bound by construction — this path exists

@@ -72,9 +72,8 @@ class SimpleGridWorld(Env):
         return state, self.observe(state)
 
     def step(self, state: GridWorldState, action, key):
-        # reward lookup by comparing against the (few) reward cells — a
-        # per-lane gather from the grid serializes on TPU (~8 ns/element,
-        # dominating the vectorized step); this is pure VPU compare+sum
+        # reward lookup by comparing against the (few) reward cells: an
+        # elementwise compare+sum instead of a gather from a reward grid
         at_cell = jnp.all(state.pos[None, :] == self._reward_cells, axis=1)
         cell_r = jnp.sum(at_cell * self._reward_vals)
         in_reward_cell = cell_r != 0.0
@@ -98,77 +97,3 @@ class SimpleGridWorld(Env):
         )
         done = becomes_terminal
         return new_state, self.observe(new_state), r.astype(jnp.float32), done
-
-    # ---------------------------------------------------------------- lanes
-    # Kernel-traceable "cols" protocol (ops/pallas/fused_collect.py): the
-    # same dynamics as step()/reset() expressed over feature-major column
-    # blocks — [k, N] arrays, pure elementwise/broadcast jnp, no jax.random
-    # (randomness enters as pre-drawn uniforms), so the math can be traced
-    # both inside a Pallas kernel and in plain XLA. The random STREAM
-    # differs from the keyed step()/reset() path (TPU PRNG vs threefry);
-    # the distribution is identical.
-    lane_state_width = 3          # [px, py, terminal] as f32 lanes
-    n_uniform_step = 2            # direction branch, other-direction pick
-    n_uniform_reset = 2           # x, y spawn
-
-    def state_to_cols(self, state: GridWorldState) -> jnp.ndarray:
-        """Vectorized state pytree ([E]-leading leaves) -> [3, E] f32."""
-        pos = state.pos.astype(jnp.float32)                 # [E, 2]
-        term = state.terminal.astype(jnp.float32)           # [E]
-        return jnp.stack([pos[:, 0], pos[:, 1], term], axis=0)
-
-    def cols_to_state(self, cols: jnp.ndarray) -> GridWorldState:
-        return GridWorldState(
-            pos=jnp.stack([cols[0], cols[1]], axis=1).astype(jnp.int32),
-            terminal=cols[2] > 0.5,
-        )
-
-    def _cells_vals(self):
-        cells = np.asarray(self._reward_cells)              # [K, 2] concrete
-        vals = np.asarray(self._reward_vals)                # [K]
-        return cells, vals
-
-    def step_cols(self, cols, action, u):
-        """``cols [3, N] f32, action [1, N] f32, u [>=2, N] in [0,1)`` ->
-        ``(new_cols, obs [no, N], reward [1, N], done [1, N])`` — step()
-        parity (pos freeze on terminal, reward-cell absorption, clip walls).
-        """
-        px, py, term = cols[0:1], cols[1:2], cols[2:3]
-        cells, vals = self._cells_vals()
-        cell_r = jnp.zeros_like(px)
-        for (cx, cy), rv in zip(cells.tolist(), vals.tolist()):
-            cell_r = cell_r + jnp.where(
-                (px == float(cx)) & (py == float(cy)), jnp.float32(rv), 0.0
-            )
-        r = jnp.where(term > 0.5, 0.0, cell_r)
-        in_cell = (cell_r != 0.0).astype(jnp.float32)
-        # stochastic direction: intended w.p. tprob, else one of the other 3
-        other = jnp.floor(u[1:2] * 3.0)
-        other = jnp.where(other >= action, other + 1.0, other)
-        d = jnp.where(u[0:1] < self.tprob, action, other)
-        dx = jnp.zeros_like(px)
-        dy = jnp.zeros_like(py)
-        for k, (ddx, ddy) in enumerate(_DIRS.tolist()):
-            sel = d == float(k)
-            dx = jnp.where(sel, float(ddx), dx)
-            dy = jnp.where(sel, float(ddy), dy)
-        npx = jnp.clip(px + dx, 1.0, float(self.size[0]))
-        npy = jnp.clip(py + dy, 1.0, float(self.size[1]))
-        bt = jnp.maximum(term, in_cell)                     # absorbing
-        npx = jnp.where(bt > 0.5, px, npx)
-        npy = jnp.where(bt > 0.5, py, npy)
-        obs = jnp.concatenate(
-            [jnp.where(bt > 0.5, -1.0, npx), jnp.where(bt > 0.5, -1.0, npy)],
-            axis=0,
-        )
-        new_cols = jnp.concatenate([npx, npy, bt], axis=0)
-        return new_cols, obs, r, bt
-
-    def reset_cols(self, u):
-        """``u [>=2, N]`` -> ``(cols [3, N], obs [no, N])`` — uniform spawn
-        over the grid (reset() distribution)."""
-        px = 1.0 + jnp.floor(u[0:1] * float(self.size[0]))
-        py = 1.0 + jnp.floor(u[1:2] * float(self.size[1]))
-        cols = jnp.concatenate([px, py, jnp.zeros_like(px)], axis=0)
-        obs = jnp.concatenate([px, py], axis=0)
-        return cols, obs

@@ -58,33 +58,3 @@ class MountainCar(Env):
         new = MountainCarState(position=pos, velocity=vel)
         done = pos >= self.goal_position
         return new, self.observe(new), jnp.asarray(-1.0, jnp.float32), done
-
-    # ---------------------------------------------------------------- lanes
-    # Kernel-traceable cols protocol (ops/pallas/fused_collect.py; see
-    # envs/gridworld.py). Deterministic physics — no step uniforms; reset
-    # draws the position uniformly in [-0.6, -0.4].
-    lane_state_width = 2          # [position, velocity]
-    n_uniform_step = 0
-    n_uniform_reset = 1
-
-    def state_to_cols(self, state: MountainCarState) -> jnp.ndarray:
-        return jnp.stack([state.position, state.velocity], axis=0)
-
-    def cols_to_state(self, cols: jnp.ndarray) -> MountainCarState:
-        return MountainCarState(position=cols[0], velocity=cols[1])
-
-    def step_cols(self, cols, action, u):
-        pos, vel = cols[0:1], cols[1:2]
-        vel = (vel + (action - 1.0) * self.force
-               - jnp.cos(3.0 * pos) * self.gravity)
-        vel = jnp.clip(vel, -self.max_speed, self.max_speed)
-        npos = jnp.clip(pos + vel, self.min_position, self.max_position)
-        vel = jnp.where((npos <= self.min_position) & (vel < 0.0), 0.0, vel)
-        done = (npos >= self.goal_position).astype(jnp.float32)
-        obs = jnp.concatenate([npos, vel], axis=0)
-        return obs, obs, jnp.full_like(done, -1.0), done
-
-    def reset_cols(self, u):
-        pos = -0.6 + u[0:1] * 0.2
-        cols = jnp.concatenate([pos, jnp.zeros_like(pos)], axis=0)
-        return cols, cols

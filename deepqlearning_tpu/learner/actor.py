@@ -19,8 +19,8 @@ from ..replay.transition import TransitionBatch
 # Ring of per-lockstep-step episode-completion aggregates for the recent-
 # average log metric (the reference's "mean of last ~100 episodes",
 # src/solver.jl:134). Aggregating per step instead of per episode keeps the
-# bookkeeping one 1-element DMA per ring — the episode-slot scatter it
-# replaces cost ~275 µs/step at 32K envs (TPU scatters serialize per lane).
+# bookkeeping one 1-element update per ring instead of an [E]-wide scatter
+# into per-episode slots.
 RETURN_RING = 512
 
 
@@ -101,7 +101,7 @@ def make_collect_step(env, network, max_episode_length: int, eps_fn,
         replay = insert_fn(replay, transition, ended)
 
         # episode bookkeeping (src/solver.jl:99-134): write this step's
-        # completion aggregates into one ring slot (a 1-element DMA each)
+        # completion aggregates into one ring slot (a 1-element update each)
         ep_ret = actor.ep_ret + reward
         ep_step = actor.ep_step + 1
         ended_f = ended.astype(jnp.float32)
@@ -154,102 +154,3 @@ def avg_recent(ret_ring: jnp.ndarray, cnt_ring: jnp.ndarray) -> jnp.ndarray:
     steps (the recent-average analog of the reference's mean-of-last-~100-
     episodes log metric, src/solver.jl:134)."""
     return jnp.sum(ret_ring) / jnp.maximum(jnp.sum(cnt_ring), 1.0)
-
-
-def make_fused_collect_step(env, network, max_episode_length: int, eps_fn,
-                            insert_fn, plan, interpret: bool = False,
-                            host_uniforms: bool = False):
-    """Fused-kernel variant of ``make_collect_step`` (same step contract).
-
-    The act→step→bookkeeping chain runs in one Pallas launch
-    (``ops/pallas/fused_collect.py``); replay insert, the logging rings and
-    the scalar counters stay in XLA. Semantics match the XLA step except
-    the RNG stream (TPU PRNG vs threefry — identical distributions;
-    ``host_uniforms=True`` moves generation to XLA for reproducible tests).
-    """
-    from ..ops.pallas.fused_collect import fused_collect
-
-    no = plan.no
-    obs_shape = tuple(env.obs_shape)
-    cell = plan.cell
-
-    def _state_rows(net_state):
-        """Cell state pytree entry -> stacked [srows, E] f32 rows."""
-        leaves = net_state[cell.layer_idx]          # (h,) or (h, c)
-        return jnp.concatenate(
-            [l.astype(jnp.float32).T for l in leaves], axis=0)
-
-    def _rows_state(net_state, rows):
-        """Stacked rows -> the same pytree structure as ``net_state``."""
-        leaves = net_state[cell.layer_idx]
-        H = cell.hidden
-        new = tuple(
-            rows[i * H: (i + 1) * H].T.astype(leaves[i].dtype)
-            for i in range(len(leaves))
-        )
-        return tuple(
-            new if i == cell.layer_idx else s
-            for i, s in enumerate(net_state)
-        )
-
-    def step(carry, _):
-        actor, replay, params = carry
-        E = actor.obs.shape[0]
-        key, k_seed, k_u = jax.random.split(actor.key, 3)
-        seeds = jax.lax.bitcast_convert_type(
-            jax.random.bits(k_seed, (1, 2), dtype=jnp.uint32), jnp.int32)
-        eps = eps_fn(actor.t)
-
-        obs_t = jnp.pad(actor.obs.reshape(E, no).T,
-                        ((0, plan.no8 - no), (0, 0)))
-        cols = jnp.pad(env.state_to_cols(actor.env_state),
-                       ((0, plan.W8 - plan.W), (0, 0)))
-        nstate = None if cell is None else _state_rows(actor.net_state)
-        fields, obs_n, cols_n, ep_step_n, ep_ret_n, totals, *rest = \
-            fused_collect(
-                env, network, plan, params,
-                obs=obs_t, cols=cols,
-                ep_step=actor.ep_step.astype(jnp.float32).reshape(1, E),
-                ep_ret=actor.ep_ret.reshape(1, E),
-                seeds=seeds, eps=eps,
-                max_episode_length=max_episode_length, nstate=nstate,
-                host_key=(k_u if (interpret or host_uniforms) else None),
-                interpret=interpret,
-            )
-        net_state = (actor.net_state if cell is None
-                     else _rows_state(actor.net_state, rest[0]))
-
-        transition = TransitionBatch(
-            obs=fields[:no].T.reshape((E,) + obs_shape),
-            action=fields[2 * no].astype(jnp.int32),
-            reward=fields[2 * no + 1],
-            next_obs=fields[no: 2 * no].T.reshape((E,) + obs_shape),
-            done=fields[2 * no + 2],
-        )
-        ended = fields[2 * no + 3] > 0.5
-        replay = insert_fn(replay, transition, ended)
-
-        slot = actor.tick
-
-        def put1(ring, val):
-            return jax.lax.dynamic_update_slice(
-                ring, val.reshape((1,)).astype(jnp.float32), (slot,)
-            )
-
-        actor = ActorState(
-            env_state=env.cols_to_state(cols_n[: plan.W]),
-            obs=obs_n[:no].T.reshape((E,) + obs_shape),
-            net_state=net_state,
-            ep_step=ep_step_n[0].astype(jnp.int32),
-            ep_ret=ep_ret_n[0],
-            ret_ring=put1(actor.ret_ring, totals[0]),
-            ep_count=actor.ep_count + totals[2].astype(jnp.int32),
-            step_ring=put1(actor.step_ring, totals[1]),
-            cnt_ring=put1(actor.cnt_ring, totals[2]),
-            tick=(actor.tick + 1) % RETURN_RING,
-            t=jnp.minimum(actor.t + E, jnp.asarray(1 << 30, jnp.int32)),
-            key=key,
-        )
-        return (actor, replay, params), None
-
-    return step

@@ -19,10 +19,6 @@ from .actor import ActorState, make_collect_step
 from .train_step import (
     make_dqn_train_step,
     make_drqn_train_step,
-    make_fused_dp_drqn_train_step,
-    make_fused_dp_train_step,
-    make_fused_grouped_drqn_train_step,
-    make_fused_grouped_train_step,
     make_grouped_dqn_train_step,
     make_grouped_drqn_train_step,
     sync_target,
@@ -58,143 +54,39 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
     (``solver/exploration.py``); populate always uses ε=1 random actions.
     """
     grouped = cfg.grouped_updates and cfg.updates_per_iter > 1
-    fused = fused_drqn = False
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    if grouped and not cfg.recurrence and cfg.fused_updates is not False:
-        from ..ops.pallas.fused_update import plan_for
-
-        # the fused kernels run f32 internally and write f32 params back —
-        # non-f32 param dtypes take the XLA paths (which honor the dtype)
-        supported = cfg.dtype == jnp.float32 and plan_for(network) is not None
-        # Auto-enable on TPU when the network is supported; an explicit
-        # fused_updates=True forces the (interpreted) path on cpu/gpu too.
-        # Under a mesh axis the grads-emitting kernel variant runs instead of
-        # the whole-phase kernel (pmean + Adam stay in XLA) — the fused path
-        # composes with data parallelism either way.
-        fused = supported and (on_tpu or cfg.fused_updates is True)
-        if cfg.fused_updates is True and not supported:
-            import warnings
-
-            warnings.warn(
-                "fused_updates=True cannot be honored (network unsupported "
-                "by the fused kernel); falling back to the grouped XLA path",
-                stacklevel=2,
-            )
-    if cfg.recurrence and cfg.fused_updates is not False:
-        # The fused DRQN kernel covers U >= 1 (even a single sub-update wins:
-        # the whole T-step unroll chain collapses into one launch). Grouping
-        # on the recurrent path is exactly equivalent to sequential updates
-        # (uniform sampling, no priorities), so fusion needs no grouped flag.
-        from ..ops.pallas.fused_drqn import drqn_plan_for
-
-        supported = cfg.dtype == jnp.float32 and drqn_plan_for(
-            network, buffer.trace_length, buffer.batch_size, cfg.double_q
-        ) is not None
-        fused_drqn = supported and (on_tpu or cfg.fused_updates is True)
-        if cfg.fused_updates is True and not supported:
-            import warnings
-
-            warnings.warn(
-                "fused_updates=True cannot be honored (network unsupported "
-                "by the fused DRQN kernel); falling back to the XLA "
-                "recurrent path", stacklevel=2,
-            )
-    if cfg.recurrence and fused_drqn and axis_name is not None:
-        # under a mesh the grads-emitting kernel variant runs (pmean + Adam
-        # in XLA) so the fused recurrent path composes with data parallelism
-        # (VERDICT r3 missing #1)
-        train_step, optimizer = make_fused_dp_drqn_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            cfg.updates_per_iter if grouped else 1, axis_name=axis_name,
-            interpret=not on_tpu,
-        )
-        insert_fn = lambda replay, tr, ended: buffer.add_step(replay, tr, ended)
-    elif cfg.recurrence and fused_drqn:
-        train_step, optimizer = make_fused_grouped_drqn_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            cfg.updates_per_iter if grouped else 1,
-            interpret=not on_tpu,
-        )
-        insert_fn = lambda replay, tr, ended: buffer.add_step(replay, tr, ended)
-    elif cfg.recurrence and grouped:
+    if cfg.recurrence and grouped:
         train_step, optimizer = make_grouped_drqn_train_step(
             network, buffer, gamma, cfg.double_q, cfg.learning_rate,
             cfg.updates_per_iter, axis_name=axis_name,
         )
-        insert_fn = lambda replay, tr, ended: buffer.add_step(replay, tr, ended)
     elif cfg.recurrence:
         train_step, optimizer = make_drqn_train_step(
             network, buffer, gamma, cfg.double_q, cfg.learning_rate,
             axis_name=axis_name,
         )
-        insert_fn = lambda replay, tr, ended: buffer.add_step(replay, tr, ended)
-    elif fused and axis_name is not None:
-        train_step, optimizer = make_fused_dp_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            cfg.updates_per_iter, axis_name=axis_name,
-            interpret=not on_tpu,
-        )
-        insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
-    elif fused:
-        train_step, optimizer = make_fused_grouped_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            cfg.updates_per_iter,
-            interpret=not on_tpu,
-        )
-        insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
     elif grouped:
         train_step, optimizer = make_grouped_dqn_train_step(
             network, buffer, gamma, cfg.double_q, cfg.learning_rate,
             cfg.updates_per_iter, axis_name=axis_name,
         )
-        insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
     else:
         train_step, optimizer = make_dqn_train_step(
             network, buffer, gamma, cfg.double_q, cfg.learning_rate,
             axis_name=axis_name,
         )
+    if cfg.recurrence:
+        insert_fn = lambda replay, tr, ended: buffer.add_step(replay, tr, ended)
+    else:
         insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
 
-    # fused collect-phase kernel: auto on TPU when the env speaks the cols
-    # protocol, the net is kernel-supported, storage is f32, the strategy is
-    # the default ε-greedy schedule, and E is lane-aligned
-    fused_col = False
-    if select_fn is None and cfg.fused_collect is not False \
-            and cfg.num_envs % 128 == 0:
-        from ..ops.pallas.fused_collect import collect_plan_for
-
-        cplan = collect_plan_for(env, network, buffer)
-        supported = cplan is not None and cfg.dtype == jnp.float32
-        fused_col = supported and (on_tpu or cfg.fused_collect is True)
-        if cfg.fused_collect is True and not supported:
-            import warnings
-
-            warnings.warn(
-                "fused_collect=True cannot be honored (env/network/buffer "
-                "unsupported by the collect kernel); using the XLA collect "
-                "step", stacklevel=2,
-            )
-    if fused_col:
-        from .actor import make_fused_collect_step
-
-        collect_step = make_fused_collect_step(
-            env, network, cfg.max_episode_length, eps_fn, insert_fn,
-            cplan, interpret=not on_tpu,
-        )
-        populate_step = make_fused_collect_step(
-            env, network, cfg.max_episode_length,
-            lambda t: jnp.asarray(1.0), insert_fn, cplan,
-            interpret=not on_tpu,
-        )
-    else:
-        collect_step = make_collect_step(
-            env, network, cfg.max_episode_length, eps_fn, insert_fn,
-            select_fn=select_fn,
-        )
-        populate_step = make_collect_step(
-            env, network, cfg.max_episode_length, lambda t: jnp.asarray(1.0),
-            insert_fn,
-        )
+    collect_step = make_collect_step(
+        env, network, cfg.max_episode_length, eps_fn, insert_fn,
+        select_fn=select_fn,
+    )
+    populate_step = make_collect_step(
+        env, network, cfg.max_episode_length, lambda t: jnp.asarray(1.0),
+        insert_fn,
+    )
     tuf = cfg.target_update_freq
 
     def iteration(carry: LoopCarry, _):

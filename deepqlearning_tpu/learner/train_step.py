@@ -48,19 +48,17 @@ def make_optimizer(learning_rate: float):
 def pmean_flat(grads, axis_name):
     """``pmean`` the whole grads pytree as ONE flat vector.
 
-    A per-leaf ``jax.lax.pmean`` lowers to several all-reduce ops (5 at the
-    headline net even after XLA's combiner), and the U sub-updates execute
-    them serially — 160 latency-bound collectives per iteration, projected
-    at only ~66% 2-host efficiency (scripts/r4/scaling_projection.py). One
-    flat all-reduce per sub-update (the concat/split is ~35 KB, noise)
-    drops that to U collectives and a projected ~90%. Numerics: the
-    reduction runs in f32 regardless of leaf dtype (more precise than a
-    bf16 tree reduce), values identical per leaf otherwise.
+    A per-leaf ``jax.lax.pmean`` lowers to one all-reduce per leaf (or a few
+    after XLA's combiner), and the U sub-updates run them one after another;
+    a single flat all-reduce per sub-update keeps that to U collectives. The
+    concat/split is a few tens of KB at the headline net. Numerics: the
+    reduction runs in f32 regardless of leaf dtype (more precise than a bf16
+    tree reduce), values identical per leaf otherwise.
 
-    ``axis_name`` may be a TUPLE of mesh axes, innermost (ICI) first: the
+    ``axis_name`` may be a TUPLE of mesh axes, innermost first: the
     reduction is then explicitly hierarchical — ``psum`` per axis in order
-    (ring over ICI within each slice, then the already-reduced vector once
-    across DCN) — the cross-slice schedule of VERDICT r4 next-step #4.
+    (within each group first, then the already-reduced vector once across
+    groups).
     """
     leaves, treedef = jax.tree_util.tree_flatten(grads)
     flat = jnp.concatenate([l.ravel().astype(jnp.float32) for l in leaves])
@@ -94,11 +92,11 @@ def _bellman_targets(network, params, target_params, next_obs, reward, done,
 
 
 def _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                       axis_name, use_pallas):
+                       axis_name):
     """Shared inner update: one (batch, weights) → grads → Adam.
 
     Returns ``update(params, target_params, opt_state, batch, weights) ->
-    (params, opt_state, td, prio_or_None, loss, grad_norm)``.
+    (params, opt_state, td, loss, grad_norm)``.
     """
     B = buffer.batch_size
     # double-Q needs the online net on s' for the argmax only (stop-grad,
@@ -108,9 +106,9 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
     #    in the serial update chain; the extra backward rows are noise.
     #  * big models (conv/image obs): the concat would run the BACKWARD over
     #    2B rows (the s' rows carry zero cotangent but XLA still computes
-    #    them) — measured 7.8 ms vs 4.2 ms per U=8 group at the conv-bench
-    #    shape. Run the s' forward OUTSIDE the tape instead (grad-free by
-    #    construction), so backward cost stays at B rows.
+    #    them), nearly doubling the backward of a conv stack. Run the s'
+    #    forward OUTSIDE the tape instead (grad-free by construction), so
+    #    backward cost stays at B rows.
     concat_sp = double_q and getattr(buffer, "no", 1 << 30) <= 256
 
     def _q_pair(p, batch):
@@ -133,89 +131,51 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
             # exactly: computed from `params`, constant w.r.t. loss_fn's p)
             q_sp_out, _ = network.apply(params, batch.next_obs)
 
-        if use_pallas:
-            from ..ops.pallas.td_kernel import td_loss_fused
+        def loss_fn(p):
+            if q_sp_out is not None:
+                q, _ = network.apply(p, batch.obs)
+                q_sp_onl = q_sp_out
+            else:
+                q, q_sp_onl = _q_pair(p, batch)
+            if double_q:
+                best = jnp.argmax(q_sp_onl, axis=-1)
+                q_sp_max = jnp.take_along_axis(
+                    q_sp_tgt, best[..., None], axis=-1
+                )[..., 0]
+            else:
+                q_sp_max = jnp.max(q_sp_tgt, axis=-1)
+            q_targets = batch.reward + (1.0 - batch.done) * gamma * q_sp_max
+            q_sa = jnp.take_along_axis(q, batch.action[:, None], axis=-1)[:, 0]
+            td = q_sa - q_targets
+            loss = jnp.sum(huber_loss(weights * td)) / B
+            return loss, td
 
-            def loss_fn(p):
-                if q_sp_out is not None:
-                    q, _ = network.apply(p, batch.obs)
-                    q_sp_onl = q_sp_out
-                else:
-                    q, q_sp_onl = _q_pair(p, batch)
-                if q_sp_onl is None:
-                    q_sp_onl = q_sp_tgt  # unused by the kernel's max path
-                # the kernel's custom VJP is f32-typed; bf16 networks cast
-                # here so the astype VJP converts the cotangent back
-                loss, td, prio = td_loss_fused(
-                    q.astype(jnp.float32), q_sp_onl.astype(jnp.float32),
-                    q_sp_tgt.astype(jnp.float32), batch.action, batch.reward,
-                    batch.done, weights, gamma, buffer.alpha, buffer.eps,
-                    double_q,
-                )
-                return loss, (td, prio)
-
-            (loss, (td, prio)), grads = jax.value_and_grad(
-                loss_fn, has_aux=True
-            )(params)
-        else:
-
-            def loss_fn(p):
-                if q_sp_out is not None:
-                    q, _ = network.apply(p, batch.obs)
-                    q_sp_onl = q_sp_out
-                else:
-                    q, q_sp_onl = _q_pair(p, batch)
-                if double_q:
-                    best = jnp.argmax(q_sp_onl, axis=-1)
-                    q_sp_max = jnp.take_along_axis(
-                        q_sp_tgt, best[..., None], axis=-1
-                    )[..., 0]
-                else:
-                    q_sp_max = jnp.max(q_sp_tgt, axis=-1)
-                q_targets = batch.reward + (1.0 - batch.done) * gamma * q_sp_max
-                q_sa = jnp.take_along_axis(q, batch.action[:, None], axis=-1)[:, 0]
-                td = q_sa - q_targets
-                loss = jnp.sum(huber_loss(weights * td)) / B
-                return loss, td
-
-            (loss, td), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
-            prio = None
-
+        (loss, td), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
         if axis_name is not None:
             grads = pmean_flat(grads, axis_name)
         grad_norm = globalnorm(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
-        return params, opt_state, td, prio, loss, grad_norm
+        return params, opt_state, td, loss, grad_norm
 
     return update
 
 
 def make_dqn_train_step(network, buffer, gamma: float, double_q: bool,
-                        learning_rate: float, axis_name: Optional[str] = None,
-                        use_pallas: Optional[bool] = None):
+                        learning_rate: float, axis_name: Optional[str] = None):
     """Feed-forward path. Returns
     ``step(params, target_params, opt_state, replay_state, key) -> TrainResult``.
-
-    ``use_pallas`` selects the fused Pallas TD-loss/priority kernel
-    (``ops/pallas/td_kernel.py``) for the loss head; default: on for TPU
-    backends, off elsewhere (the jnp path is the reference semantics either
-    way — the kernel is bit-equivalent, see tests/test_pallas_kernels.py).
     """
     optimizer = make_optimizer(learning_rate)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu", "gpu")
     update = _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                                axis_name, use_pallas)
+                                axis_name)
 
     def step(params, target_params, opt_state, replay_state, key):
         batch, idx, weights = buffer.sample(replay_state, key)
-        params, opt_state, td, prio, loss, grad_norm = update(
+        params, opt_state, td, loss, grad_norm = update(
             params, target_params, opt_state, batch, weights
         )
-        replay_state = buffer.update_priorities(
-            replay_state, idx, td, priorities=prio
-        )
+        replay_state = buffer.update_priorities(replay_state, idx, td)
         return TrainResult(params, opt_state, replay_state, loss, grad_norm)
 
     return step, optimizer
@@ -223,8 +183,7 @@ def make_dqn_train_step(network, buffer, gamma: float, double_q: bool,
 
 def make_grouped_dqn_train_step(network, buffer, gamma: float, double_q: bool,
                                 learning_rate: float, n_updates: int,
-                                axis_name: Optional[str] = None,
-                                use_pallas: Optional[bool] = None):
+                                axis_name: Optional[str] = None):
     """``n_updates`` sequential Adam updates sharing ONE replay sample.
 
     At high env counts the loop runs several train updates back-to-back per
@@ -245,10 +204,8 @@ def make_grouped_dqn_train_step(network, buffer, gamma: float, double_q: bool,
     """
     optimizer = make_optimizer(learning_rate)
     B, U = buffer.batch_size, int(n_updates)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu", "gpu")
     update = _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                                axis_name, use_pallas)
+                                axis_name)
 
     def step(params, target_params, opt_state, replay_state, key):
         batch, idx, weights = buffer.sample_n(replay_state, key, U)
@@ -268,287 +225,19 @@ def make_grouped_dqn_train_step(network, buffer, gamma: float, double_q: bool,
         def body(carry, xs):
             params, opt_state = carry
             b, w, q_sp_tgt = xs
-            params, opt_state, td, prio, loss, grad_norm = update(
+            params, opt_state, td, loss, grad_norm = update(
                 params, target_params, opt_state, b, w, q_sp_tgt=q_sp_tgt
             )
-            if prio is None:
-                prio = jnp.zeros_like(td)  # unused (jnp path recomputes)
-            return (params, opt_state), (td, prio, loss, grad_norm)
+            return (params, opt_state), (td, loss, grad_norm)
 
-        (params, opt_state), (tds, prios, losses, gnorms) = jax.lax.scan(
+        (params, opt_state), (tds, losses, gnorms) = jax.lax.scan(
             body, (params, opt_state), (batches, w_u, q_sp_tgt_u)
         )
 
         # merged priority update: re-interleave back to draw order
         re = lambda x: x.reshape((U * B,) + x.shape[2:])  # u-major flat order
-        replay_state = buffer.update_priorities(
-            replay_state, idx, re(tds),
-            priorities=re(prios) if use_pallas else None,
-        )
+        replay_state = buffer.update_priorities(replay_state, idx, re(tds))
         # report the last sub-update's loss/grad (the "latest" the host logs)
-        return TrainResult(params, opt_state, replay_state,
-                           losses[-1], gnorms[-1])
-
-    return step, optimizer
-
-
-class FusedAdamState(NamedTuple):
-    """Adam state for the fully-fused grouped step (``ops/pallas/fused_update``).
-
-    Same math as ``optax.adam``, but moments are params-shaped pytrees while
-    the non-fused path uses ``optax.flatten`` (raveled vectors). Checkpoints
-    still resume across the two layouts: ``checkpoint.load_train_state``
-    converts between them (the moment values are identical; tested in
-    tests/test_checkpoint.py)."""
-
-    m: any
-    v: any
-    count: jnp.ndarray
-
-
-def make_fused_grouped_train_step(network, buffer, gamma: float,
-                                  double_q: bool, learning_rate: float,
-                                  n_updates: int, interpret: bool = False):
-    """Grouped train step with the WHOLE train phase in one Pallas launch.
-
-    Semantically the ``make_grouped_dqn_train_step`` path (one shared
-    stratified sample + ``n_updates`` sequential Adam sub-updates + one merged
-    priority update), but forward/TD-loss/backward/Adam for all sub-updates
-    run inside a single kernel with parameters resident in VMEM
-    (``ops/pallas/fused_update.py``) — removing the ~20-kernel launch chain
-    each sub-update pays on the XLA path. Only supported for feed-forward
-    (dueling) Dense stacks; callers should check ``fused_update.plan_for``
-    first and fall back.
-    """
-    from ..ops.pallas.fused_update import fused_group_update, plan_for
-
-    plan = plan_for(network)
-    if plan is None:
-        raise ValueError("network not supported by the fused update kernel")
-    B, U = buffer.batch_size, int(n_updates)
-
-    class _Opt:
-        @staticmethod
-        def init(params):
-            z = lambda: jax.tree_util.tree_map(jnp.zeros_like, params)
-            return FusedAdamState(m=z(), v=z(), count=jnp.asarray(0, jnp.int32))
-
-    def step(params, target_params, opt_state, replay_state, key):
-        batch, idx, weights = buffer.sample_n(replay_state, key, U)
-        q_sp_tgt_all, _ = network.apply(target_params, batch.next_obs)
-
-        # [U*B] -> [U, B] stride-U de-interleave (see grouped step above)
-        de = lambda x: x.reshape((U, B) + x.shape[1:])  # u-major sample_n
-        obs_u = de(batch.obs).reshape(U, B, -1)
-        w_u = de(weights)
-        q_sp_tgt_u = de(q_sp_tgt_all)
-        if double_q:
-            nobs_u = de(batch.next_obs).reshape(U, B, -1)
-            obs_cat = jnp.concatenate([obs_u, nobs_u], axis=1)
-        else:
-            obs_cat = obs_u
-
-        p, m, v, count, tds, prios, loss, gnorm = fused_group_update(
-            network, plan, params, opt_state.m, opt_state.v, opt_state.count,
-            obs_cat, de(batch.action), de(batch.reward), de(batch.done),
-            w_u, q_sp_tgt_u,
-            gamma=gamma, double_q=double_q, lr=learning_rate,
-            alpha=buffer.alpha, eps=buffer.eps, batch_size=B,
-            interpret=interpret,
-        )
-        re = lambda x: x.reshape((U * B,) + x.shape[2:])  # u-major flat order
-        replay_state = buffer.update_priorities(
-            replay_state, idx, re(tds), priorities=re(prios)
-        )
-        return TrainResult(p, FusedAdamState(m, v, count), replay_state,
-                           loss, gnorm)
-
-    return step, _Opt
-
-
-def make_fused_dp_train_step(network, buffer, gamma: float, double_q: bool,
-                             learning_rate: float, n_updates: int,
-                             axis_name: str, interpret: bool = False):
-    """Data-parallel fused grouped step: Pallas forward+backward per
-    sub-update, ``pmean`` + Adam in XLA.
-
-    The full fused kernel (``make_fused_grouped_train_step``) applies Adam
-    locally inside the kernel, which cannot compose with gradient averaging
-    across a mesh — under any ``axis_name`` round 2 silently fell back to the
-    grouped XLA path (VERDICT r2 missing #2). This variant splits the work:
-    the grads-emitting kernel (``ops/pallas/fused_update.py::fused_grads``)
-    fuses the ~20-kernel forward/backward launch chain per sub-update into
-    one launch; the cross-device ``pmean``, the Adam update, and the merged
-    priority update stay in XLA — the identical semantics to
-    ``make_grouped_dqn_train_step`` with ``axis_name`` set.
-    """
-    from ..ops.pallas.fused_update import fused_grads, plan_for
-
-    plan = plan_for(network)
-    if plan is None:
-        raise ValueError("network not supported by the fused update kernel")
-    optimizer = make_optimizer(learning_rate)
-    B, U = buffer.batch_size, int(n_updates)
-
-    def step(params, target_params, opt_state, replay_state, key):
-        batch, idx, weights = buffer.sample_n(replay_state, key, U)
-        q_sp_tgt_all, _ = network.apply(target_params, batch.next_obs)
-
-        # [U*B] -> [U, B] stride-U de-interleave (see grouped step above)
-        de = lambda x: x.reshape((U, B) + x.shape[1:])  # u-major sample_n
-        obs_u = de(batch.obs).reshape(U, B, -1)
-        nobs_u = de(batch.next_obs).reshape(U, B, -1)
-        xs = (obs_u, nobs_u, de(batch.action), de(batch.reward),
-              de(batch.done), de(weights), de(q_sp_tgt_all))
-
-        def body(carry, x):
-            params, opt_state = carry
-            obs_s, obs_sp, a, r, d, w, qsp = x
-            grads, td, prio, loss, _ = fused_grads(
-                network, plan, params, obs_s, obs_sp, a, r, d, w, qsp,
-                gamma=gamma, double_q=double_q, alpha=buffer.alpha,
-                eps=buffer.eps, axis_name=axis_name, interpret=interpret,
-            )
-            grads = pmean_flat(grads, axis_name)
-            grad_norm = globalnorm(grads)
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            return (params, opt_state), (td, prio, loss, grad_norm)
-
-        (params, opt_state), (tds, prios, losses, gnorms) = jax.lax.scan(
-            body, (params, opt_state), xs
-        )
-        re = lambda x: x.reshape((U * B,) + x.shape[2:])  # u-major flat order
-        replay_state = buffer.update_priorities(
-            replay_state, idx, re(tds), priorities=re(prios)
-        )
-        return TrainResult(params, opt_state, replay_state,
-                           losses[-1], gnorms[-1])
-
-    return step, optimizer
-
-
-def make_fused_grouped_drqn_train_step(network, buffer, gamma: float,
-                                       double_q: bool, learning_rate: float,
-                                       n_updates: int,
-                                       interpret: bool = False):
-    """Grouped recurrent train step with the WHOLE train phase in one Pallas
-    launch (``ops/pallas/fused_drqn.py``).
-
-    Semantically ``make_grouped_drqn_train_step`` (one shared window gather +
-    ``n_updates`` sequential Adam sub-updates), but the LSTM unrolls, the
-    masked time-summed TD loss (``src/solver.jl:258-282``), the hand-derived
-    BPTT, and Adam all run inside a single kernel with parameters resident in
-    VMEM — removing the per-recurrence-step XLA launch chain that made the
-    recurrent path 17.8x slower than the feed-forward one at round 2. The
-    target-net Q(s') unroll runs once outside the kernel (the target net is
-    frozen within the step, exactly as in the XLA grouped path). Callers
-    should check ``fused_drqn.drqn_plan_for`` first and fall back.
-    """
-    from ..ops.pallas.fused_drqn import drqn_plan_for, fused_drqn_group_update
-
-    B, T, U = buffer.batch_size, buffer.trace_length, int(n_updates)
-    plan = drqn_plan_for(network, T, B, double_q)
-    if plan is None:
-        raise ValueError("network not supported by the fused DRQN kernel")
-
-    class _Opt:
-        @staticmethod
-        def init(params):
-            z = lambda: jax.tree_util.tree_map(jnp.zeros_like, params)
-            return FusedAdamState(m=z(), v=z(), count=jnp.asarray(0, jnp.int32))
-
-    def step(params, target_params, opt_state, replay_state, key):
-        batch = buffer.sample_n(replay_state, key, U)  # [U*B, T, ...]
-
-        # target-net Q(s') for ALL windows in one zero-state unroll (frozen
-        # within the step; identical to the per-sub-update unroll of the XLA
-        # grouped path since target_params do not change between sub-updates)
-        nobs_t = jnp.swapaxes(batch.next_obs, 0, 1)    # [T, U*B, ...]
-        init_state = network.init_state(U * B)
-        q_tgt_seq, _ = network.apply_sequence(target_params, nobs_t, init_state)
-        A = q_tgt_seq.shape[-1]
-        # [T, U*B, A] -> [U, B, T, A] (sample_n's flat order is u-major:
-        # flat index i -> (u = i // B, b = i % B), i.e. sub-batch u occupies
-        # rows [u*B:(u+1)*B] — the contract at replay/prioritized.py sample_n)
-        q_sp_tgt = jnp.transpose(
-            q_tgt_seq.reshape(T, U, B, A), (1, 2, 0, 3)
-        )
-
-        de = lambda x: x.reshape((U, B) + x.shape[1:])  # u-major sample_n
-        p, m, v, count, loss, gnorm = fused_drqn_group_update(
-            network, plan, params, opt_state.m, opt_state.v, opt_state.count,
-            de(batch.obs), de(batch.next_obs), de(batch.action),
-            de(batch.reward), de(batch.done), de(batch.mask), q_sp_tgt,
-            gamma=gamma, double_q=double_q, lr=learning_rate,
-            interpret=interpret,
-        )
-        return TrainResult(p, FusedAdamState(m, v, count), replay_state,
-                           loss, gnorm)
-
-    return step, _Opt
-
-
-def make_fused_dp_drqn_train_step(network, buffer, gamma: float,
-                                  double_q: bool, learning_rate: float,
-                                  n_updates: int, axis_name: str,
-                                  interpret: bool = False):
-    """Data-parallel fused recurrent step: Pallas trace-forward+BPTT per
-    sub-update, ``pmean`` + Adam in XLA.
-
-    The DRQN sibling of ``make_fused_dp_train_step`` (VERDICT r3 missing #1):
-    the full fused DRQN kernel applies Adam locally inside the kernel, which
-    cannot compose with gradient averaging across a mesh — round 3 silently
-    fell back to the XLA unroll chain under any ``axis_name``. Here the
-    grads-emitting kernel (``ops/pallas/fused_drqn.py::fused_drqn_grads``)
-    fuses each sub-update's whole T-step unroll + BPTT launch chain into one
-    launch; the cross-device ``pmean``, the Adam update, and the scan over
-    sub-updates stay in XLA — identical semantics to
-    ``make_grouped_drqn_train_step`` with ``axis_name`` set
-    (``src/solver.jl:239-287``).
-    """
-    from ..ops.pallas.fused_drqn import drqn_plan_for, fused_drqn_grads
-
-    B, T, U = buffer.batch_size, buffer.trace_length, int(n_updates)
-    plan = drqn_plan_for(network, T, B, double_q)
-    if plan is None:
-        raise ValueError("network not supported by the fused DRQN kernel")
-    optimizer = make_optimizer(learning_rate)
-
-    def step(params, target_params, opt_state, replay_state, key):
-        batch = buffer.sample_n(replay_state, key, U)  # [U*B, T, ...]
-
-        # target-net Q(s') for ALL windows in one zero-state unroll (frozen
-        # within the step; see make_fused_grouped_drqn_train_step)
-        nobs_t = jnp.swapaxes(batch.next_obs, 0, 1)    # [T, U*B, ...]
-        init_state = network.init_state(U * B)
-        q_tgt_seq, _ = network.apply_sequence(target_params, nobs_t, init_state)
-        A = q_tgt_seq.shape[-1]
-        q_sp_tgt = jnp.transpose(
-            q_tgt_seq.reshape(T, U, B, A), (1, 2, 0, 3)
-        )  # [U, B, T, A]
-
-        de = lambda x: x.reshape((U, B) + x.shape[1:])  # u-major sample_n
-        xs = (de(batch.obs), de(batch.next_obs), de(batch.action),
-              de(batch.reward), de(batch.done), de(batch.mask), q_sp_tgt)
-
-        def body(carry, x):
-            params, opt_state = carry
-            obs, nobs, a, r, d, mk, qsp = x
-            grads, loss, _ = fused_drqn_grads(
-                network, plan, params, obs, nobs, a, r, d, mk, qsp,
-                gamma=gamma, double_q=double_q, axis_name=axis_name,
-                interpret=interpret,
-            )
-            grads = pmean_flat(grads, axis_name)
-            grad_norm = globalnorm(grads)
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            return (params, opt_state), (loss, grad_norm)
-
-        (params, opt_state), (losses, gnorms) = jax.lax.scan(
-            body, (params, opt_state), xs
-        )
         return TrainResult(params, opt_state, replay_state,
                            losses[-1], gnorms[-1])
 

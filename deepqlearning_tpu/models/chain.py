@@ -35,9 +35,10 @@ def _glorot_uniform(key, shape, dtype):
 class Dense:
     """Affine layer with optional fused activation.
 
-    Mirrors Flux ``Dense(in, out, act)``. Matmuls accumulate in float32 for
-    MXU correctness (``preferred_element_type``), then cast back to the input
-    dtype so bf16 activations stay bf16 end-to-end.
+    Mirrors Flux ``Dense(in, out, act)``. Matmuls accumulate in float32
+    (``preferred_element_type``), then cast back to the input dtype so bf16
+    activations stay bf16 end-to-end. No ``precision`` is passed: float32
+    matmuls run at the backend's default matmul precision.
     """
 
     in_dim: int
@@ -105,8 +106,8 @@ class LSTM:
     """Single-step LSTM cell (the recurrent unit behind reference DRQN,
     ``test/runtests.jl:117``).
 
-    One fused ``[in+hidden, 4H]`` matmul per step keeps the MXU busy; the
-    gate math runs on the VPU and XLA fuses it into the matmul epilogue.
+    One fused ``[in+hidden, 4H]`` matmul per step; XLA fuses the gate math
+    into the elementwise work around it.
     State is ``(h, c)`` each ``[batch, hidden]``; unrolling over time is the
     caller's ``lax.scan``.
     """
@@ -152,7 +153,7 @@ class LSTM:
         """Unroll over a ``[T, B, in]`` sequence.
 
         The input projection for ALL timesteps is one fat ``[T*B, 4H]``
-        matmul on the MXU; only the ``h @ wh`` recurrence stays inside the
+        matmul; only the ``h @ wh`` recurrence stays inside the
         ``lax.scan`` — the standard RNN restructuring that removes T-1
         sequential input matmuls from the critical path.
         """
@@ -179,8 +180,8 @@ class Conv2D:
     """2-D convolution over NHWC inputs (the Flux ``Conv`` analog).
 
     The reference's user nets are Dense/LSTM only (``test/runtests.jl``), but
-    image-observation DQN (Atari-style) needs convs; XLA maps these onto the
-    MXU. ``stride``/``padding`` follow lax.conv semantics.
+    image-observation DQN (Atari-style) needs convs; XLA lowers these to the
+    backend's convolution library. ``stride``/``padding`` follow lax.conv semantics.
     """
 
     in_channels: int
@@ -202,9 +203,9 @@ class Conv2D:
         return {"w": w, "b": jnp.zeros((self.out_channels,), dtype)}
 
     def apply(self, params, x):
-        # low-precision inputs keep the conv OUTPUT in the input dtype: the
-        # TPU MXU accumulates bf16 convs in f32 internally regardless, and a
-        # forced f32 output breaks the backward (the transpose-conv cotangent
+        # low-precision inputs keep the conv OUTPUT in the input dtype (the
+        # accumulation is f32 internally regardless), and a forced f32
+        # output breaks the backward (the transpose-conv cotangent
         # arrives f32 while w is bf16, and lax.conv rejects mixed dtypes)
         pet = jnp.float32 if x.dtype == jnp.float32 else None
         y = jax.lax.conv_general_dilated(

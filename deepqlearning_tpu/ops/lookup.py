@@ -1,15 +1,10 @@
-"""Small-table lookups without TPU gathers.
+"""Small-table lookups as one-hot matmuls.
 
-On TPU, a per-lane gather serializes (~8 ns per gathered element — measured
-on v5e: a [32768]-index lookup from a 100-entry table costs ~260 µs/step,
-which dominated the whole vectorized env step). For small tables the
-speed-of-light formulation is a one-hot matmul: building the [N, K] one-hot
-is fully lane-parallel VPU work and the contraction rides the MXU — measured
-at ~0 µs/step marginal cost for the same lookup.
-
-``take0(table, idx)`` is the drop-in replacement for ``table[idx]`` whenever
-``table.shape[0]`` is small (≲ 64K rows; cost grows linearly in K while the
-gather it replaces grows linearly in the number of *output* elements).
+``take0(table, idx)`` computes ``table[idx]`` for a small ``table`` as a
+one-hot ``[N, K]`` matrix times the table: elementwise work plus one
+matrix product, with no gather. Its cost grows linearly in K, so it is meant
+for small tables only. Whether it beats a plain gather depends on the
+backend; it is kept as the exact, precision-pinned reference form.
 """
 from __future__ import annotations
 
@@ -33,7 +28,7 @@ def take0(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     # HIGHEST precision: single-pass bf16 would round table values even
     # against an exact 0/1 one-hot operand
     out = jnp.matmul(oh, flat_tab,
-                     precision=jax.lax.Precision.HIGHEST)   # [N, P] on the MXU
+                     precision=jax.lax.Precision.HIGHEST)   # [N, P]
     out = out.reshape(idx.shape + tail)
     if jnp.issubdtype(table.dtype, jnp.integer) or table.dtype == jnp.bool_:
         out = jnp.round(out)

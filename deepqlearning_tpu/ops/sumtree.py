@@ -6,13 +6,11 @@ which cannot scale; SURVEY.md §2.2 mandates a tree/prefix-sum sampler.
 
 Representation: a tuple of per-level arrays, leaves first, with a **fat
 branching factor** (64 by default) — a 256K-leaf tree is 3 levels instead of
-18. Depth costs twice on TPU: each level is a dependent kernel (latency
-chain), and each descended level materializes one-hot selection intermediates
-(HBM traffic ∝ draws × stripe width). Profiling the 256K-leaf/4096-draw
-bench shape: branch-16 descent = 258 µs/iteration (three heavy levels);
-branch-64 has a single heavy level. Fat nodes trade extra VPU lanes (cumsum
-over 64 children, fully vectorized) for that. Contiguous leaf updates are
-``dynamic_update_slice`` DMAs, not scatters.
+18. Each level is a dependent step of the descent (a latency chain), and each
+descended level materializes one-hot selection intermediates (memory traffic
+∝ draws × stripe width), so fewer, wider levels cost less; a fat node trades
+a vectorized cumsum over 64 children for that. Contiguous leaf updates are
+``dynamic_update_slice`` writes, not scatters.
 
 All ops are batched, jit-friendly; no host sync, no data-dependent shapes.
 """
@@ -62,13 +60,15 @@ def _rebuild_from(leaves: jnp.ndarray) -> Tree:
 
 
 def set_priorities(tree: Tree, indices: jnp.ndarray, priorities: jnp.ndarray) -> Tree:
-    """Set leaf priorities at arbitrary ``indices`` (scatter) and rebuild."""
-    leaves = tree[0].at[indices].set(priorities.astype(jnp.float32))
+    """Set leaf priorities at arbitrary ``indices`` (scatter) and rebuild.
+    Out-of-range indices are dropped."""
+    leaves = tree[0].at[indices].set(priorities.astype(jnp.float32),
+                                     mode="drop")
     return _rebuild_from(leaves)
 
 
 def set_priorities_slice(tree: Tree, start, priorities: jnp.ndarray) -> Tree:
-    """Set a contiguous run of leaves starting at ``start`` (one DMA) and
+    """Set a contiguous run of leaves starting at ``start`` (one slice write) and
     rebuild. Used by the aligned ring insert."""
     leaves = jax.lax.dynamic_update_slice(
         tree[0], priorities.astype(jnp.float32), (start,)
@@ -122,11 +122,10 @@ def sample(tree: Tree, key, batch_size: int, stratified: bool = True):
     batched analog — documented deviation (SURVEY.md §7 hard part (a)).
 
     Descent per level: fetch each sample's ``bf`` children ([B, bf]) as a
-    one-hot matmul against the level reshaped to [parents, bf] — a per-lane
-    gather serializes on TPU (~8 ns/element: B·bf·levels ≈ 40K elements was
-    ~300 µs/sample); the one-hot contraction rides the MXU instead. Then
-    prefix-sum across children and pick the first whose cumulative mass
-    exceeds the residual.
+    one-hot matmul against the level reshaped to [parents, bf] (at HIGHEST
+    precision, so the fetched masses are exact) rather than a per-element
+    gather. Then prefix-sum across children and pick the first whose
+    cumulative mass exceeds the residual.
 
     Returns ``(indices [B] int32, priorities [B] float32)``.
     """
@@ -140,9 +139,7 @@ def sample(tree: Tree, key, batch_size: int, stratified: bool = True):
 
 def descend(tree: Tree, mass: jnp.ndarray):
     """Descend given target masses; returns ``(leaf idx [B] int32,
-    residual mass [B])``. Monotone non-decreasing in ``mass`` — the
-    windowed Pallas sampler relies on this to bound per-chunk leaf windows
-    by boundary descents."""
+    residual mass [B])``. Monotone non-decreasing in ``mass``."""
     batch_size = mass.shape[0]
     idx = jnp.zeros((batch_size,), jnp.int32)
     # descend from just below the root down to the leaves; at each step we sit

@@ -1,9 +1,9 @@
-"""Data-parallel actor-learner over a TPU device mesh.
+"""Data-parallel actor-learner over a device mesh.
 
 The reference is strictly single-device (SURVEY.md §2.3); the scaling story
 here is the BASELINE.json north star: envs and replay sharded over a
-``data`` mesh axis, parameters replicated, gradients ``pmean``-reduced over
-ICI by XLA — expressed with ``jax.shard_map`` around the same pure
+``data`` mesh axis, parameters replicated, gradients ``pmean``-reduced by
+XLA — expressed with ``jax.shard_map`` around the same pure
 ``iteration`` the single-chip solver uses (``learner/loop.py``). Each shard
 owns ``num_envs`` local envs and a full local replay shard, so collection and
 sampling need *zero* collectives; the only cross-device traffic is the grad

@@ -1,7 +1,7 @@
 """Multi-host launch: process wiring, pod-shaped meshes, per-process sizing.
 
-The reference has no distributed story (SURVEY.md §5.8). TPU-native
-multi-host: every host runs the same program; ``initialize_multihost`` wires
+The reference has no distributed story (SURVEY.md §5.8). Multi-host
+here: every host runs the same program; ``initialize_multihost`` wires
 ``jax.distributed``; mesh builders shape the device mesh so collectives ride
 ICI before DCN; ``pod_shard_plan`` does the per-process arithmetic a pod
 launch actually needs (how many envs/batch rows this process owns, and
@@ -34,8 +34,8 @@ from jax.sharding import Mesh
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed. On TPU pods the arguments are inferred
-    from the environment; pass them explicitly elsewhere."""
+    """Initialize jax.distributed. Where JAX detects a cluster the arguments
+    are inferred from the environment; otherwise pass all three."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs = dict(

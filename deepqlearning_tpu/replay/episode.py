@@ -3,29 +3,24 @@ on the hot path, window sampling as ONE sliced gather.
 
 The reference stores whole variable-length episodes and cuts random
 ``trace_length`` windows at sample time (``src/episode_replay.jl``). A naive
-static-shape port (per-env accumulator rows + row scatters on commit) costs
-milliseconds per step on TPU — scatters serialize. Instead, transitions
-stream into a **time-major ring** ``[R, E, F]``: every lockstep step writes
-row ``t % R`` for all envs — and because the time axis is MAJOR, that row is
-one contiguous slab regardless of which layout XLA picks for the sample-time
-gathers. (Round 3 traced the env-major ``[E, R]`` variant on a real chip:
-the window gather made XLA lay the ring out R-minor, turning the per-step
-column write into 16K scattered 4-byte stores at 1.6 ms per field — 3.2 ms
-of a 5.1 ms iteration. Time-major makes the write layout-proof.)
+static-shape port (per-env accumulator rows + row scatters on commit) puts
+E scatters on every step. Instead, transitions stream into a **time-major
+ring** ``[R, E, F]``: every lockstep step writes row ``t % R`` for all envs
+— and because the time axis is MAJOR, that row is one contiguous slab
+regardless of which layout XLA picks for the sample-time gathers (an
+env-major ``[E, R]`` ring lets XLA lay the ring out R-minor, turning the
+per-step column write into E scattered stores).
 
-Round-4 layout (the r3 profile showed the [U*B, T] window gather at ~45% of
-the DRQN iteration):
+Layout:
 
-  * ALL fields share one f32 ring ``[R + T - 1, E, 2*prod(obs) + 4]``
-    (``obs | next_obs | action, reward, done, pad``). Gather cost on this
-    chip is per GATHER OP x per INDEX (measured: one merged slice-gather
-    160 us vs two separate 302 us vs six 1 ms at the bench draw), so fewer
-    gathers of wider rows win twice.
+  * ALL fields share one ring ``[R + T - 1, E, 2*prod(obs) + 4]``
+    (``obs | next_obs | action, reward, done, pad``), so sampling is one
+    gather of wide rows instead of one gather per field.
   * The ring carries ``T - 1`` SHADOW rows mirroring rows ``0..T-2`` (each
     step writes its row, and its shadow copy when ``t % R < T-1``), so every
     trace window is a CONTIGUOUS ``[T]`` slice mod-free — sampling becomes a
     single ``lax.gather`` with ``slice_sizes=(T, 1, F)``: U*B indices instead
-    of U*B*T row indices (measured 343 -> 160 us at 2048 windows x T=8).
+    of U*B*T row indices.
 
 Episodes are just ``(start, length)`` records in a small per-env index ring,
 updated with a one-hot select over the M record columns (scatter-free).
@@ -35,15 +30,14 @@ mask. Records whose data has been overwritten by the ring are remapped to
 the env's most recent episode (documented deviation; with default sizing the
 ring holds the full episode capacity so this only triggers after wraparound).
 
-Storage dtype (round 5): the merged ring is stored in ``obs_dtype`` itself.
+Storage dtype: the merged ring is stored in ``obs_dtype`` itself.
 Obs/next_obs are cast to ``obs_dtype`` (the usual quantization the caller
 asked for); the four f32 scalars (action, reward, done, pad) are **bit-cast**
 into ``4 / itemsize(obs_dtype)`` lanes of the ring dtype and bit-cast back at
 sample time — exact f32 round-trip, zero precision loss, still ONE gather.
-A uint8 image ring is 4x smaller than round 4's all-f32 ring (bf16: 2x), so
-under the same ``max_ring_bytes`` cap it holds 4x the history instead of
-wrapping early (ADVICE r4: the f32 ring quadrupled image-DRQN slot cost).
-f32 is the identity case — bit-for-bit the round-4 layout.
+A uint8 image ring is 4x smaller than an all-f32 ring (bf16: 2x), so under
+the same ``max_ring_bytes`` cap it holds 4x the history instead of wrapping
+early. f32 is the identity case.
 """
 from __future__ import annotations
 
@@ -71,14 +65,10 @@ class EpisodeReplayState(NamedTuple):
     # with T-1 shadow rows (see module docstring); feature layout per env:
     # [obs (no) | next_obs (no) | action, reward, done, pad — the scalars
     #  bit-cast from f32 into 4*ratio lanes of the ring dtype].
-    # G = max(1, 128 // F) envs share one 128-lane row: a [R, E, F] ring
-    # with small F makes XLA lane-pad F to 128 (T(8,128) tiling) — a 16x
-    # HBM blowup at F=8 that OOMed 131072-env DRQN — while a flat [R, E*F]
-    # ring stores dense but turns the window gather into misaligned
-    # sub-tile slice reads (measured 6x slower). Grouped rows store dense
-    # AND gather as aligned full tiles; the sampled window selects its
-    # env's F lanes with a one-hot contraction afterwards (trivial VPU
-    # work).
+    # G = max(1, 128 // F) envs share one 128-wide row, so rows stay dense
+    # for small F (no padding of a narrow minor dim) while the window gather
+    # still reads whole rows; the sampled window selects its env's F lanes
+    # afterwards (an exact elementwise select).
     data: jnp.ndarray      # [R + T - 1, E // G, G * F] obs_dtype
     # episode index: per-env ring of (start, length) records
     ep_start: jnp.ndarray  # [E, M] int32 — global step of episode start
@@ -180,7 +170,7 @@ class EpisodeReplayBuffer:
     def add_step(
         self, state: EpisodeReplayState, batch: TransitionBatch, ended: jnp.ndarray
     ) -> EpisodeReplayState:
-        """Append one lockstep transition per env (one merged slab DMA, plus
+        """Append one lockstep transition per env (one merged slab write, plus
         its shadow copy); envs whose episode ``ended`` commit an index record
         via a one-hot select (scatter-free).
 
@@ -275,9 +265,8 @@ class EpisodeReplayBuffer:
         # sparse envs whenever per-env record counts differ (reference
         # draws uniformly over all stored episodes,
         # src/episode_replay.jl:77-80). The weighted env draw rides the
-        # sum-tree descent (MXU one-hot stages) — a jnp.searchsorted here
-        # was a sequential binary-search kernel chain that cost ~1/3 of
-        # DRQN bench throughput.
+        # sum-tree descent (one-hot stages) instead of a jnp.searchsorted,
+        # which lowers to a sequential binary-search chain.
         from ..ops import sumtree
 
         def weighted_env(k):
@@ -334,9 +323,9 @@ class EpisodeReplayBuffer:
             mode="promise_in_bounds",
         )[:, :, 0]                                               # [B, T, G*F]
         if G > 1:
-            # EXACT lane select (where + one-term sum): a one-hot MXU
-            # contraction at default precision would round the bit-cast
-            # scalar lanes through bf16 and corrupt the decoded f32s
+            # EXACT lane select (where + one-term sum): a one-hot matmul
+            # at default precision would round the bit-cast scalar lanes
+            # (TF32/bf16 passes) and corrupt the decoded f32s
             sel = (jnp.arange(G)[None, None, :, None]
                    == (env % G)[:, None, None, None])            # [B,1,G,1]
             w4 = win.reshape(B, T, G, self.F)

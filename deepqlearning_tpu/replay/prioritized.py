@@ -41,17 +41,12 @@ class ReplayState(NamedTuple):
     and the four f32 scalars (action, reward, done, pad) share a single
     ``[C, 2*prod(obs) + 4*ratio]`` array in the storage dtype, scalars
     bit-cast into dtype lanes (exact f32 round-trip; ``ratio = 4 /
-    itemsize``). Sampling a batch is then ONE row gather. Row gathers
-    serialize per row on TPU (~13 ns/row measured on v5e): round 3's
-    5-field layout cost ~34 µs/update at batch 512, round 4's 2-array
-    packing ~13 µs, the merged row halves that again — at the headline's
-    16384-draw grouped fetch this is ~100 µs/iteration.
+    itemsize``). Sampling a batch is then ONE row gather instead of one per
+    field.
 
-    Rows are FLAT rather than ``[C, 2, *obs_shape]``: a trailing obs dim
-    smaller than the 128-lane tile (e.g. NHWC channels=4) makes the gather
-    read mostly layout padding — measured 1294 µs vs 342 µs for 8192 draws
-    of (20,20,4)-pair rows on a v5e. The reshape back to obs_shape happens
-    after the gather.
+    Rows are FLAT rather than ``[C, 2, *obs_shape]`` so that each gathered
+    row is one contiguous run whatever the trailing obs dim (e.g. NHWC
+    channels=4); the reshape back to obs_shape happens after the gather.
     """
 
     rows: jnp.ndarray      # [C, 2*no + 4*ratio] obs_dtype (see above)
@@ -166,10 +161,9 @@ class PrioritizedReplayBuffer:
         """Ring-insert a batch of E transitions.
 
         When E divides the capacity, ``insert_pos`` stays E-aligned forever,
-        so the insert is a contiguous ``dynamic_update_slice`` per field — a
-        DMA, not a TPU scatter (scatters serialize and dominated the bench
-        before this). Misaligned batch sizes fall back to scatter with
-        wraparound.
+        so the insert is a contiguous ``dynamic_update_slice`` per field
+        instead of a scatter. Misaligned batch sizes fall back to scatter
+        with wraparound.
         """
         E = batch.action.shape[0]
         prio = self._initial_priority(batch.reward)
@@ -207,8 +201,7 @@ class PrioritizedReplayBuffer:
         Ordering contract: the flat ``[n*B]`` arrays are **u-major** — draws
         for sub-batch ``u`` occupy ``[u*B:(u+1)*B]``, so callers split with a
         free ``reshape(n, B)`` instead of a strided de-interleave (which
-        relayouts the [nB, *obs] gather output — ~0.5 ms at the conv-bench
-        shape). Stratification is preserved: sub-batch u gets stratified
+        relayouts the whole [nB, *obs] gather output). Stratification is preserved: sub-batch u gets stratified
         draws {u, n+u, 2n+u, ...}, spanning the full priority mass.
 
         The observation arrays keep the buffer's storage dtype (no forced
@@ -237,18 +230,7 @@ class PrioritizedReplayBuffer:
             idx = idx_u.reshape(-1)
             prio = prio_u.reshape(-1)
         else:
-            from ..ops.pallas.tree_sample import sample_pallas, supported
-
-            if jax.default_backend() not in ("cpu", "gpu") and supported(
-                state.tree, total_draws
-            ):
-                # Pallas descent kernels: the whole-descent kernel (one
-                # launch instead of ~30 serially-dependent XLA kernels) up
-                # to 2^19 leaves, the windowed kernel beyond (leaf level
-                # streamed per draw-chunk window — ops/pallas/tree_sample.py)
-                idx, prio = sample_pallas(state.tree, key, total_draws)
-            else:
-                idx, prio = sumtree.sample(state.tree, key, total_draws)
+            idx, prio = sumtree.sample(state.tree, key, total_draws)
             if n_batches > 1:
                 # stratum-order -> u-major: sub-batch u takes strata
                 # {u, n+u, ...}. Reordering the [nB] int32/f32 vectors is
@@ -289,17 +271,20 @@ class PrioritizedReplayBuffer:
 
     def update_priorities(
         self, state: ReplayState, indices: jnp.ndarray, td_errors: jnp.ndarray,
-        priorities: jnp.ndarray = None,
     ) -> ReplayState:
-        """Parity with ``update_priorities!`` (``src/prioritized_experience_replay.jl:76-80``).
-
-        ``priorities`` may carry precomputed ``(|td|+eps)^alpha`` values (the
-        fused Pallas kernel emits them) to skip the recompute.
-        """
+        """Parity with ``update_priorities!`` (``src/prioritized_experience_replay.jl:76-80``)."""
         if not self.prioritized:
             return state
-        if priorities is None:
-            priorities = (jnp.abs(td_errors) + self.eps) ** self.alpha
+        priorities = (jnp.abs(td_errors) + self.eps) ** self.alpha
+        # A row drawn more than once keeps its LAST write (the latest
+        # sub-update in the grouped step's u-major order), as sequential
+        # updates would leave it. XLA's GPU scatter applies duplicate
+        # indices in no fixed order, so earlier duplicates are dropped here.
+        order = jnp.argsort(indices, stable=True)
+        srt = indices[order]
+        last = jnp.concatenate([srt[1:] != srt[:-1], jnp.ones((1,), bool)])
+        keep = jnp.zeros(indices.shape, bool).at[order].set(last)
+        indices = jnp.where(keep, indices, state.tree[0].shape[0])
         return state._replace(
             tree=sumtree.set_priorities(state.tree, indices, priorities)
         )

@@ -1,11 +1,17 @@
-"""Best-model checkpointing.
+"""Best-model checkpointing and full train-state resume.
 
 Parity with the reference checkpoint story (``src/solver.jl:290-318``):
 save the Q-network parameters whenever an eval score beats the best so far
 (``save_model``), auto-restore the best weights at the end of training
 (``src/solver.jl:170-176``), and offline ``restore_best_model`` that rebuilds
-the policy and loads weights. The serialized artifact is a msgpack dump of
-the parameter pytree (flax.serialization) — the BSON analog.
+the policy and loads weights.
+
+The serialized artifact (the BSON analog) is an ``.npz`` of the flattened
+pytree, written and read by numpy alone with ``allow_pickle=False``: one
+array per leaf plus the leaves' key paths and dtype names. Loading restores
+into a template pytree of the same structure; a path or shape mismatch is an
+error. Dtypes numpy cannot store natively (bfloat16) are stored as their
+same-width unsigned-integer bits and viewed back on load.
 """
 from __future__ import annotations
 
@@ -13,105 +19,99 @@ import os
 from typing import Optional, Tuple
 
 import jax
-from flax import serialization
+import jax.numpy as jnp
+import numpy as np
 
-CKPT_NAME = "qnetwork.msgpack"
+CKPT_NAME = "qnetwork.npz"
+TRAIN_STATE_NAME = "train_state.npz"
+
+
+def _save_tree(path: str, tree) -> str:
+    leaves_with_paths, _ = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(tree))
+    arrays = {}
+    keys, dtypes = [], []
+    for i, (kp, leaf) in enumerate(leaves_with_paths):
+        arr = np.asarray(leaf)
+        keys.append(jax.tree_util.keystr(kp))
+        dtypes.append(arr.dtype.name)
+        if arr.dtype.kind == "V":   # ml_dtypes (bfloat16, ...): store the bits
+            arr = arr.view(f"u{arr.dtype.itemsize}")
+        arrays[f"leaf_{i}"] = arr
+    arrays["__paths__"] = np.asarray(keys, dtype=np.str_)
+    arrays["__dtypes__"] = np.asarray(dtypes, dtype=np.str_)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def _refuse_legacy(path: str) -> None:
+    legacy = os.path.splitext(path)[0] + ".msgpack"
+    if not os.path.exists(path) and os.path.exists(legacy):
+        raise ValueError(
+            f"{legacy} is a msgpack (flax.serialization) checkpoint from an "
+            f"earlier version; this version reads only the .npz format "
+            f"({os.path.basename(path)}). Re-train or convert it."
+        )
+
+
+def _load_tree(path: str, template):
+    _refuse_legacy(path)
+    tmpl_leaves, treedef = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(template))
+    try:
+        data = np.load(path, allow_pickle=False)
+    except ValueError as e:
+        raise ValueError(f"{path} is not an .npz checkpoint: {e}") from e
+    with data:
+        if "__paths__" not in data.files:
+            raise ValueError(f"{path} is not a checkpoint written by save_*")
+        paths = [str(p) for p in data["__paths__"]]
+        dtypes = [str(d) for d in data["__dtypes__"]]
+        want = [jax.tree_util.keystr(kp) for kp, _ in tmpl_leaves]
+        if paths != want:
+            raise ValueError(
+                f"checkpoint {path} holds a different pytree: saved paths "
+                f"{paths[:4]}... vs template {want[:4]}..."
+            )
+        out = []
+        for i, (_, t) in enumerate(tmpl_leaves):
+            arr = data[f"leaf_{i}"]
+            dt = jnp.dtype(dtypes[i])
+            if arr.dtype != dt:
+                arr = arr.view(dt)
+            if arr.shape != np.shape(t):
+                raise ValueError(
+                    f"checkpoint {path}: leaf {paths[i]} has shape "
+                    f"{arr.shape}, template {np.shape(t)}"
+                )
+            out.append(arr)
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def save_params(logdir: str, params) -> str:
     os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, CKPT_NAME)
-    params = jax.device_get(params)
-    with open(path, "wb") as f:
-        f.write(serialization.to_bytes(params))
-    return path
+    return _save_tree(os.path.join(logdir, CKPT_NAME), params)
 
 
 def load_params(logdir: str, params_template):
-    path = os.path.join(logdir, CKPT_NAME)
-    with open(path, "rb") as f:
-        data = f.read()
-    return serialization.from_bytes(jax.device_get(params_template), data)
-
-
-TRAIN_STATE_NAME = "train_state.msgpack"
+    return _load_tree(os.path.join(logdir, CKPT_NAME), params_template)
 
 
 def save_train_state(logdir: str, carry) -> str:
-    """Full resume checkpoint (params + target + opt state + actor counters).
+    """Full resume checkpoint (params + target + opt state + replay + actor).
 
     Extension over the reference, which saves best-model params only and
     cannot resume training (SURVEY.md §5.4).
     """
     os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, TRAIN_STATE_NAME)
-    with open(path, "wb") as f:
-        f.write(serialization.to_bytes(jax.device_get(carry)))
-    return path
-
-
-def _convert_opt_state(raw_opt, tmpl_opt, params):
-    """Convert a serialized Adam state between the two layouts in use.
-
-    The non-fused path stores ``optax.flatten(optax.adam(...))`` state (one
-    raveled mu/nu vector, serialized as ``{'0': {count, mu, nu}, '1': {}}``);
-    the fused Pallas path stores ``FusedAdamState`` (params-shaped m/v trees
-    + count). The underlying moments are mathematically identical —
-    ``optax.flatten`` ravels with ``jax.flatten_util.ravel_pytree`` — so a
-    checkpoint written by either layout resumes under the other.
-    """
-    import jax.numpy as jnp
-    from jax.flatten_util import ravel_pytree
-
-    keys = set(raw_opt.keys())
-    tmpl_is_fused = hasattr(tmpl_opt, "m") and hasattr(tmpl_opt, "v")
-    if {"m", "v", "count"} <= keys and not tmpl_is_fused:
-        # FusedAdamState -> optax.flatten(adam)
-        m = serialization.from_state_dict(params, raw_opt["m"])
-        v = serialization.from_state_dict(params, raw_opt["v"])
-        mu, _ = ravel_pytree(m)
-        nu, _ = ravel_pytree(v)
-        inner = tmpl_opt[0]._replace(
-            count=jnp.asarray(raw_opt["count"], tmpl_opt[0].count.dtype),
-            mu=mu.astype(tmpl_opt[0].mu.dtype),
-            nu=nu.astype(tmpl_opt[0].nu.dtype),
-        )
-        return (inner,) + tuple(tmpl_opt[1:])
-    if tmpl_is_fused and "0" in keys:
-        # optax.flatten(adam) -> FusedAdamState
-        inner = raw_opt["0"]
-        _, unravel = ravel_pytree(params)
-        return tmpl_opt._replace(
-            m=unravel(jnp.asarray(inner["mu"])),
-            v=unravel(jnp.asarray(inner["nu"])),
-            count=jnp.asarray(inner["count"], jnp.int32),
-        )
-    raise ValueError(
-        f"cannot convert serialized opt state with keys {sorted(keys)} to "
-        f"{type(tmpl_opt).__name__}"
-    )
+    return _save_tree(os.path.join(logdir, TRAIN_STATE_NAME), carry)
 
 
 def load_train_state(logdir: str, carry_template):
-    """Restore a full training state, converting the Adam-state layout if the
-    checkpoint was written by the other train-step path (fused vs XLA)."""
-    path = os.path.join(logdir, TRAIN_STATE_NAME)
-    with open(path, "rb") as f:
-        data = f.read()
-    template = jax.device_get(carry_template)
-    try:
-        return serialization.from_bytes(template, data)
-    except (ValueError, KeyError, TypeError):
-        raw = serialization.msgpack_restore(data)
-        fields = template._asdict()
-        out = {}
-        for k, v in fields.items():
-            if k != "opt_state":
-                out[k] = serialization.from_state_dict(v, raw[k], name=k)
-        out["opt_state"] = _convert_opt_state(
-            raw["opt_state"], fields["opt_state"], out["params"]
-        )
-        return template._replace(**out)
+    """Restore a full training state into ``carry_template``'s structure."""
+    return _load_tree(os.path.join(logdir, TRAIN_STATE_NAME), carry_template)
 
 
 def save_model(logdir: Optional[str], params, scores_eval: float,

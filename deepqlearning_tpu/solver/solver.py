@@ -1,6 +1,6 @@
 """DeepQLearningSolver — training orchestrator.
 
-The TPU-native reshape of the reference solver (``src/solver.jl``): the
+The vectorized reshape of the reference solver (``src/solver.jl``): the
 mutable single-env step loop (``dqn_train!``, ``src/solver.jl:59-178``)
 becomes a pure jitted *iteration* = (scan of E lockstep env steps → replay
 insert → K fused train updates → conditional target sync), scanned into
@@ -146,8 +146,8 @@ class DeepQLearningSolver:
         key = jax.random.PRNGKey(cfg.seed)
         k_init, k_pop, k_actor, k_eval, k_learn = jax.random.split(key, 5)
         # cfg.dtype reaches BOTH the replay storage (_build_buffer) and the
-        # network parameters — bf16 params are what make conv stacks run the
-        # MXU's native precision (scripts/conv_bench.py measures the shape)
+        # network parameters — bf16 params run conv stacks as bf16 x bf16
+        # products with f32 accumulation (scripts/conv_bench.py)
         params = network.init(k_init, cfg.dtype)
         target_params = params
 

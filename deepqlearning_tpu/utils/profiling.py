@@ -7,6 +7,7 @@ utilities.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 import jax
@@ -25,6 +26,54 @@ def trace(logdir: str):
 def enable_nan_checks(enabled: bool = True):
     """Debug-NaN mode (SURVEY.md §5.2): every jitted output is checked."""
     jax.config.update("jax_debug_nans", enabled)
+
+
+def require_gpu():
+    """Return ``jax.devices()[0]`` if it is an NVIDIA GPU, else raise.
+
+    Every timing path calls this first: a time taken on another backend is
+    never reported under a device metric's name, and nothing falls back.
+    """
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise RuntimeError(
+            f"this measurement needs an NVIDIA GPU; JAX's first device is "
+            f"{dev.platform!r} ({dev.device_kind})"
+        )
+    return dev
+
+
+def gpu_name_and_power_limit() -> str:
+    """``name, power.limit`` of every card, as ``nvidia-smi`` reports them.
+
+    A child process that never touches JAX, so it holds no device memory.
+    """
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def time_calls(fn, x, reps: int):
+    """Call ``x = fn(x)`` ``reps`` times after two warm-up calls, each call
+    ending in ``jax.block_until_ready`` on its whole output.
+
+    Returns ``(x, seconds)``: the last output and the per-call wall times.
+    ``fn`` may donate its argument; the output is threaded back in. Two
+    warm-up calls, because an output can differ in type from the first
+    input (a weakly typed scalar comes back strongly typed), and the call
+    that retraces for it must not land in the timed reps.
+    """
+    for _ in range(2):
+        x = jax.block_until_ready(fn(x))
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        x = jax.block_until_ready(fn(x))
+        secs.append(time.perf_counter() - t0)
+    return x, secs
 
 
 class StepTimer:

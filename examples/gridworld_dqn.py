@@ -1,4 +1,4 @@
-"""The reference README example (README.md:34-50 there), TPU-native.
+"""The reference README example (README.md:34-50 there), vectorized.
 
 SimpleGridWorld + MLP Q-network + prioritized double dueling DQN, 10k steps.
 """

@@ -2,19 +2,19 @@
 
 TestMDP with (20,20) stacked-frame image observations (the reference
 benchmark's own sweep shape, ``benchmark/flux_dqn.jl:46-52`` /
-``test/test_env.jl:52-58``) solved with a Conv2D Q-network running bf16 on
-the MXU. Demonstrates:
+``test/test_env.jl:52-58``) solved with a Conv2D Q-network running in bf16.
+Demonstrates:
 
   * `Conv2D` layers + `create_dueling_network` splitting the trailing Dense
     stack into value/advantage heads (the solver does the split when
     ``dueling=True``);
   * bf16 end-to-end: `dtype=jnp.bfloat16` casts network params, and the
-    replay buffer stores observations in bf16 (`ops` promote as needed) —
-    the v5e MXU's native precision (`scripts/conv_bench.py` measures this
-    exact shape at ~83 TFLOP/s, 42% MFU);
+    replay buffer stores observations in bf16 (`ops` promote as needed), so
+    convs and matmuls run bf16 x bf16 -> f32 (`scripts/conv_bench.py`
+    measures this exact shape);
   * vectorized collection with thousands of lockstep envs.
 
-Run: ``python examples/image_conv_dqn.py`` (TPU; ~1 min). CPU works with
+Run: ``python examples/image_conv_dqn.py`` (GPU; ~1 min). CPU works with
 ``JAX_PLATFORMS=cpu`` but is slow at these sizes — shrink ``num_envs``.
 """
 import os

@@ -2,7 +2,7 @@
 
 Same learning problem as gridworld_dqn.py, but collection runs 4096 envs per
 step with aggregate-step frequencies preserved (train_freq in env steps).
-On a TPU mesh, wrap the same loop with ``parallel.DataParallelRunner``.
+On a multi-GPU mesh, wrap the same loop with ``parallel.DataParallelRunner``.
 """
 import os
 import sys

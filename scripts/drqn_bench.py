@@ -1,27 +1,23 @@
-"""DRQN loop throughput at HEAD.
+"""DRQN loop throughput on one GPU.
 
-Same methodology as ``bench.py`` (scan of full iterations, best-of-reps,
-host-read sync) but with the recurrent path: LSTM(obs→32) Q-network,
-EpisodeReplayBuffer (merged shadow-row ring, sliced window gathers) + the
-fused DRQN Pallas kernel. Recorded numbers: r5 37.3M steps/s at
-BENCH_ENVS=16384 (r4: 33.4M, r3: 16.2M, r2: 3.0M), 54.7M at 65536, 50.9M
-at 131072 (OOM before the r5 grouped-lane ring layout: XLA lane-padded
-the [R, E, 8] ring 16x); data/update ratio 4096:1.
+Same method as ``bench.py`` (one jitted scan of full iterations per rep,
+ending in ``jax.block_until_ready``; median and quartiles over reps) on the
+recurrent path: LSTM(obs→32) Q-network and EpisodeReplayBuffer (merged
+shadow-row ring, sliced window gathers); data/update ratio 4096:1. Needs an
+NVIDIA GPU; fails without one.
 
-Run: ``python scripts/drqn_bench.py`` (TPU). Prints one JSON line.
+Run: ``python scripts/drqn_bench.py`` (``BENCH_ENVS``, ``BENCH_ITERS``,
+``BENCH_REPS``). Prints one JSON line.
 """
 import json
 import os
+import statistics
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 
 def main():
@@ -31,12 +27,21 @@ def main():
     from deepqlearning_tpu.learner.loop import LoopCarry, build_loop
     from deepqlearning_tpu.replay.episode import EpisodeReplayBuffer
     from deepqlearning_tpu.solver.exploration import LinearDecaySchedule
+    from deepqlearning_tpu.utils.compile_cache import enable_compile_cache
+    from deepqlearning_tpu.utils.profiling import (
+        gpu_name_and_power_limit,
+        require_gpu,
+        time_calls,
+    )
 
-    num_envs = int(os.environ.get("BENCH_ENVS", "4096"))
+    dev = require_gpu()
+    enable_compile_cache()
+    num_envs = int(os.environ.get("BENCH_ENVS", "65536"))
     batch_size = 512
     trace_length = 8
     train_freq = 4096
-    n_iters = int(os.environ.get("BENCH_ITERS", "400"))
+    n_iters = int(os.environ.get("BENCH_ITERS", "50"))
+    reps = int(os.environ.get("BENCH_REPS", "10"))
 
     env = SimpleGridWorld()
     network = Chain(LSTM(2, 32), Dense(32, env.num_actions))
@@ -57,25 +62,19 @@ def main():
     key = jax.random.PRNGKey(0)
     k_init, k_act, k_learn = jax.random.split(key, 3)
     params = network.init(k_init)
-    actor = init_actor(env, network, num_envs, k_act)
     carry = LoopCarry(
-        actor=actor, replay=buffer.init(), params=params,
-        target_params=params, opt_state=optimizer.init(params),
-        lkey=k_learn, loss=jnp.asarray(0.0), gnorm=jnp.asarray(0.0),
+        actor=init_actor(env, network, num_envs, k_act),
+        replay=buffer.init(), params=params,
+        target_params=params,
+        opt_state=optimizer.init(params), lkey=k_learn,
+        loss=jnp.asarray(0.0), gnorm=jnp.asarray(0.0),
         sync_acc=jnp.asarray(0, jnp.int32),
     )
 
     @jax.jit
-    def run(carry):
-        carry, _ = jax.lax.scan(iteration, carry, None, length=n_iters)
-        return carry
-
-    @jax.jit
     def populate(carry):
-        # recurrent populate sizing: every env must commit at least one
-        # episode before sampling (max_episode_length+1 lockstep steps), same
-        # as _solve_functional — so the measured loop trains on real windows,
-        # not uncommitted zero traces (ADVICE r2)
+        # every env must commit at least one episode before sampling
+        # (max_episode_length+1 lockstep steps), as in _solve_functional
         actor, replay, params = carry.actor, carry.replay, carry.params
         (actor, replay, params), _ = jax.lax.scan(
             populate_step, (actor, replay, params), None,
@@ -84,29 +83,25 @@ def main():
         replay = buffer.reset_in_progress(replay)
         return carry._replace(actor=actor, replay=replay)
 
-    def sync(carry):
-        return float(carry.loss)
+    @jax.jit
+    def run(carry):
+        carry, _ = jax.lax.scan(iteration, carry, None, length=n_iters)
+        return carry
 
-    carry = populate(carry)
-    for _ in range(2):
-        carry = run(carry)
-        sync(carry)
-
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        carry = run(carry)
-        sync(carry)
-        best = min(best, time.perf_counter() - t0)
-
+    carry, secs = time_calls(run, populate(carry), reps)
     steps = n_iters * cfg.env_steps_per_iter
-    sps = steps / best
+    rates = sorted(steps / s for s in secs)
+    q = statistics.quantiles(rates, n=4)
     print(json.dumps({
         "metric": "drqn_env_steps_per_s",
-        "value": round(sps, 1),
+        "value": statistics.median(rates),
+        "q1": q[0], "q3": q[2],
         "unit": "steps/s",
+        "reps": reps, "iters_per_rep": n_iters,
         "config": f"{num_envs} envs, LSTM32, trace {trace_length}",
-        "vs_baseline": round(sps / 1e6, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "card": gpu_name_and_power_limit(),
     }))
 
 

@@ -6,10 +6,16 @@ Each process owns 4 virtual CPU devices; together they form the 8-device
 run the DataParallelRunner segment, and verify params stay replicated across
 the local shards. Launched by tests/test_multihost.py.
 
+The worker always runs on the CPU: several of these processes start on one
+machine, and on a GPU each JAX process would reserve most of the card's
+memory when it first touched it, so the second would fail.
+
 Usage: multihost_worker.py <coordinator> <num_processes> <process_id>
 """
 import os
 import sys
+
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

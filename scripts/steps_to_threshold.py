@@ -5,7 +5,7 @@ reports the first aggregate env-step count at which the greedy-eval return
 crosses the reference thresholds (GridWorld: positive return; TestMDP: 1.5,
 reference ``test/runtests.jl:59``). Prints one JSON line per problem.
 
-Run: ``python scripts/steps_to_threshold.py`` (CPU or TPU).
+Run: ``python scripts/steps_to_threshold.py`` (CPU or GPU).
 """
 import json
 import os

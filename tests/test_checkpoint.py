@@ -118,96 +118,64 @@ def test_full_train_state_resume(tmp_path):
     assert not np.allclose(np.asarray(a), np.asarray(b))
 
 
-def test_opt_state_layout_conversion_both_ways(tmp_path):
-    # a checkpoint saved by the fused-Adam path must resume under the
-    # optax.flatten(adam) path and vice versa (same moments, same count)
+def test_npz_roundtrip_keeps_structure_dtypes_and_bits(tmp_path):
+    # the .npz format restores every leaf bit-exactly, with its dtype —
+    # bfloat16 params included — into the template's pytree structure
     from typing import NamedTuple
 
-    import optax
-
-    from deepqlearning_tpu.learner.train_step import (
-        FusedAdamState,
-        make_optimizer,
-    )
+    import ml_dtypes
 
     class Carry(NamedTuple):
         params: dict
-        opt_state: object
+        step: object
+        flags: object
 
-    net = Chain(Dense(3, 8), Dense(8, 2))
-    params = net.init(jax.random.PRNGKey(0))
-    opt = make_optimizer(1e-3)
-    flat = opt.init(params)
-    grads = jax.tree_util.tree_map(lambda p: jnp.ones_like(p) * 0.1, params)
-    _, flat = opt.update(grads, flat, params)
-    _, flat = opt.update(grads, flat, params)
-
-    # flat -> fused
-    d1 = str(tmp_path / "flat")
-    checkpoint.save_train_state(d1, Carry(params, flat))
-    fused_tmpl = Carry(params, FusedAdamState(
-        m=jax.tree_util.tree_map(jnp.zeros_like, params),
-        v=jax.tree_util.tree_map(jnp.zeros_like, params),
-        count=jnp.asarray(0, jnp.int32)))
-    loaded = checkpoint.load_train_state(d1, fused_tmpl)
-    assert int(loaded.opt_state.count) == 2
-    from jax.flatten_util import ravel_pytree
-
-    np.testing.assert_allclose(ravel_pytree(loaded.opt_state.m)[0],
-                               np.asarray(flat[0].mu), rtol=1e-6)
-    np.testing.assert_allclose(ravel_pytree(loaded.opt_state.v)[0],
-                               np.asarray(flat[0].nu), rtol=1e-6)
-
-    # fused -> flat
-    d2 = str(tmp_path / "fused")
-    checkpoint.save_train_state(d2, Carry(params, loaded.opt_state))
-    back = checkpoint.load_train_state(d2, Carry(params, opt.init(params)))
-    assert int(back.opt_state[0].count) == 2
-    np.testing.assert_allclose(np.asarray(back.opt_state[0].mu),
-                               np.asarray(flat[0].mu), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(back.opt_state[0].nu),
-                               np.asarray(flat[0].nu), rtol=1e-6)
-
-
-def test_opt_state_conversion_recurrent_params(tmp_path):
-    # the ravel-based conversion is structure-agnostic: an LSTM chain's
-    # FusedAdamState (written by the fused DRQN path on TPU) resumes under
-    # the optax layout the CPU path uses, and round-trips back
-    from typing import NamedTuple
-
-    from deepqlearning_tpu.models.chain import LSTM
-    from deepqlearning_tpu.learner.train_step import (
-        FusedAdamState,
-        make_optimizer,
+    rng = np.random.default_rng(0)
+    carry = Carry(
+        params={"w": jnp.asarray(rng.normal(size=(3, 4)), jnp.bfloat16),
+                "b": jnp.asarray(rng.normal(size=4), jnp.float32)},
+        step=jnp.asarray(123456789, jnp.int32),
+        flags=jnp.asarray([True, False, True]),
     )
+    path = checkpoint.save_train_state(str(tmp_path), carry)
+    assert path.endswith(".npz")
+    template = jax.tree_util.tree_map(jnp.zeros_like, carry)
+    loaded = checkpoint.load_train_state(str(tmp_path), template)
+    assert type(loaded) is Carry
+    for a, b in zip(jax.tree_util.tree_leaves(carry),
+                    jax.tree_util.tree_leaves(loaded)):
+        assert np.asarray(b).dtype == np.asarray(a).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert np.asarray(loaded.params["w"]).dtype == ml_dtypes.bfloat16
+    # a template of another structure is refused, not half-filled
+    import pytest
 
-    class Carry(NamedTuple):
-        params: object
-        opt_state: object
+    with pytest.raises(ValueError, match="different pytree"):
+        checkpoint.load_train_state(str(tmp_path), {"params": template.params})
 
-    net = Chain(LSTM(3, 8), Dense(8, 2))
-    params = net.init(jax.random.PRNGKey(0))
-    fused = FusedAdamState(
-        m=jax.tree_util.tree_map(lambda p: jnp.full_like(p, 0.25), params),
-        v=jax.tree_util.tree_map(lambda p: jnp.full_like(p, 0.5), params),
-        count=jnp.asarray(7, jnp.int32))
-    d = str(tmp_path / "drqn")
-    checkpoint.save_train_state(d, Carry(params, fused))
-    opt = make_optimizer(1e-3)
-    loaded = checkpoint.load_train_state(d, Carry(params, opt.init(params)))
-    assert int(loaded.opt_state[0].count) == 7
-    from jax.flatten_util import ravel_pytree
 
-    np.testing.assert_allclose(np.asarray(loaded.opt_state[0].mu),
-                               ravel_pytree(fused.m)[0], rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(loaded.opt_state[0].nu),
-                               ravel_pytree(fused.v)[0], rtol=1e-6)
+def test_legacy_msgpack_checkpoint_refused(tmp_path):
+    # a checkpoint in the earlier msgpack format is refused with an error
+    # that names the format, for both the best model and the train state
+    import pytest
+
+    for name in ("qnetwork.msgpack", "train_state.msgpack"):
+        (tmp_path / name).write_bytes(b"\x82\xa1w\x93\x01\x02\x03")
+    net = Chain(Dense(3, 8), Dense(8, 2))
+    with pytest.raises(ValueError, match="msgpack"):
+        checkpoint.load_params(str(tmp_path), net.init(jax.random.PRNGKey(0)))
+    with pytest.raises(ValueError, match="msgpack"):
+        checkpoint.load_train_state(str(tmp_path), {"w": jnp.zeros(3)})
+    # bytes that are not an .npz at the .npz path are refused as well
+    (tmp_path / checkpoint.CKPT_NAME).write_bytes(b"\x82\xa1w\x93\x01")
+    with pytest.raises(ValueError, match="npz"):
+        checkpoint.load_params(str(tmp_path), net.init(jax.random.PRNGKey(0)))
 
 
 def test_full_train_state_resume_recurrent(tmp_path):
     """Resume on the DRQN path: the episode ring (r4 merged shadow-row
     layout), its index records, and the recurrent actor state must all
-    roundtrip through the msgpack train-state checkpoint."""
+    roundtrip through the .npz train-state checkpoint."""
     from deepqlearning_tpu import LSTM, EpsGreedyPolicy, SimpleGridWorld
 
     mdp = SimpleGridWorld()

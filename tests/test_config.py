@@ -97,3 +97,14 @@ def test_dtype_string_spelling_canonicalized():
     cfg = DQNConfig(dtype="float32")
     assert cfg.dtype == jnp.float32
     assert DQNConfig(dtype="bfloat16").dtype == jnp.bfloat16
+
+
+def test_removed_kernel_knobs_are_refused():
+    # the TPU kernel switches are gone: passing one is an error, not a no-op
+    import pytest
+
+    for knob in ("fused_updates", "fused_collect"):
+        with pytest.raises(TypeError):
+            DQNConfig(**{knob: True})
+        with pytest.raises(TypeError):
+            DeepQLearningSolver(**{knob: False})

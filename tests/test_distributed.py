@@ -1,5 +1,5 @@
 """Data-parallel mesh tests on the simulated 8-device CPU mesh
-(SURVEY.md §4: the TPU-native analog of multi-node tests).
+(SURVEY.md §4: the analog of multi-node tests).
 """
 import numpy as np
 import jax

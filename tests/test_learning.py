@@ -116,7 +116,7 @@ def test_tiger_ddrqn_smoke():
 
 # --- vectorized collection preserves learning -----------------------------
 def test_vectorized_envs_learning():
-    # num_envs > 1 is the TPU-native extension; ratios are preserved so
+    # num_envs > 1 is the vectorized extension; ratios are preserved so
     # learning matches (SURVEY.md §7 hard part (c))
     mdp = TestMDP((5, 5), 4, 6)
     solver = _solver(_mlp(mdp), double_q=True, dueling=True,
@@ -152,8 +152,7 @@ def test_bf16_replay_storage():
 def test_bf16_dtype_reaches_params_and_solves():
     """cfg.dtype must reach BOTH the replay storage and the network params
     (r4: solver previously initialized params f32 regardless); bf16 solve
-    stays finite and produces a valid policy on the XLA path (fused kernels
-    are f32-gated and fall back)."""
+    stays finite and produces a valid policy."""
     import jax.numpy as jnp
 
     from deepqlearning_tpu import (
